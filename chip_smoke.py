@@ -5,14 +5,20 @@ Run from anywhere with ``python3 chip_smoke.py`` on a machine with an NVIDIA
 Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels (nvcc) and the native host library (make);
+  2. build the CUDA kernels (nvcc, one process per source) and the native
+     host library (make);
   3. each kernel against its plain-torch twin on the card, at the shapes the
-     main path gives it (K2 band rows, K3 jump-flood round, K4 chamfer);
-  4. the main path, ``generate_from_file`` on the 81,920-triangle sphere at
-     256^3 and 512^3, held against the reference binary's sparse goldens
-     with the bars of tests/test_parity_golden.py; every kernel's launch
-     counter must have moved during these calls;
-  5. wall time per call (median and min of warm calls, host binning and the
+     main path gives it (K1 dense separable, K1b dense SoA, K2 band rows, K3
+     jump-flood round, K4 chamfer);
+  4. the main path, both halves. Binned: ``generate_from_file`` on the
+     81,920-triangle sphere at 256^3 and 512^3, held against the reference
+     binary's sparse goldens (bars of tests/test_parity_golden.py). Dense:
+     the CLI (``python -m sdfgenfast_tpu_torch.cli``) on the three box
+     goldens, box36 at 256 x 341 x 425 and a 1024-triangle torus at
+     256 x 256 x 75 held against the binned path, and a small
+     ``generate_sdf_batch``. Each path's launch counters are set to 0 just
+     before it and must have moved just after;
+  5. wall time per call (median and min of warm calls, host work and the
      copy back included) and each kernel's time next to its twin's.
 
 Prints one JSON line of per-kernel results, then the card line, then, as the
@@ -22,6 +28,7 @@ Imports nothing of JAX or of the JAX package.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -202,6 +209,266 @@ def check_k4(torch, device, full_shape,
     return err, ms, plain
 
 
+def tri_local(torch, device, mesh, origin):
+    """(M, 3, 3) float32 grid-local triangle vertices on the card."""
+    tv = mesh.verts[mesh.tris.astype(np.int64)] - np.asarray(origin, np.float32)
+    return torch.from_numpy(np.ascontiguousarray(tv, np.float32)).to(device)
+
+
+def check_dense(torch, device, label, kernel, twin, table, tris, dx,
+                grid_shape, ijk_offset=(0, 0, 0)):
+    """K1 / K1b vs its twin: phi within rtol 3e-6 / atol 1e-6; ids equal
+    except where the two ids' distances tie to that bar; at most 1e-4 of
+    the cells differ at all. Returns max |err|."""
+    from sdfgenfast_tpu_torch.ops.geometry import point_triangle_distance_sq_soa
+
+    kw = dict(grid_shape=grid_shape, ijk_offset=ijk_offset)
+    gp, gt = kernel(table, dx, **kw)
+    wp, wt = twin(table, dx, **kw)
+    torch.cuda.synchronize()
+    gp, gt, wp, wt = (x.cpu().numpy() for x in (gp, gt, wp, wt))
+    if not np.isfinite(gp).all():
+        raise AssertionError(f"{label}: non-finite distances")
+    np.testing.assert_allclose(gp, wp, rtol=3e-6, atol=1e-6,
+                               err_msg=f"{label} phi")
+    mism = gt != wt
+    differ = mism | (gp.view(np.int32) != wp.view(np.int32))
+    if mism.any():
+        # both ids' distances at those cells, in the twins' arithmetic
+        n = np.flatnonzero(mism)
+        ijk = np.stack(np.unravel_index(n, grid_shape), 1) + np.asarray(
+            ijk_offset)
+        p = torch.from_numpy(ijk.astype(np.float32) * np.float32(dx)).to(device)
+        pts = tuple(p[:, i] for i in range(3))
+
+        def dist(ids):
+            t = tris[torch.from_numpy(ids.astype(np.int64)).to(device)]
+            return torch.sqrt(point_triangle_distance_sq_soa(
+                pts, *(tuple(t[:, v, i] for i in range(3))
+                       for v in range(3)))).cpu().numpy()
+
+        np.testing.assert_allclose(dist(gt.reshape(-1)[n]),
+                                   dist(wt.reshape(-1)[n]), rtol=3e-6,
+                                   atol=1e-6, err_msg=f"{label} tid at non-tie")
+    if differ.sum() > 1e-4 * differ.size:
+        raise AssertionError(f"{label}: {int(differ.sum())} cells differ")
+    err = abs_err(torch.from_numpy(gp), torch.from_numpy(wp))
+    print(f"{label} vs twin: {grid_shape}, M={table.shape[1]}, cells "
+          f"differing {int(differ.sum())} of {differ.size} (tid "
+          f"{int(mism.sum())}), max|err| {err:.3e}", flush=True)
+    return err
+
+
+def box36(Mesh, box_mesh):
+    """The reference's 36-triangle benchmark box (bench.py): the 3x4x5 box
+    with each face triangle split 1->3 at its centroid."""
+    m = box_mesh((3, 4, 5), (-1, -1, -1))
+    cent = m.verts[m.tris].mean(axis=1).astype(np.float32)
+    nv = len(m.verts)
+    tris = []
+    for i, (a, b, c) in enumerate(m.tris):
+        tris += [(a, b, nv + i), (b, c, nv + i), (c, a, nv + i)]
+    return Mesh(np.concatenate([m.verts, cent]), np.asarray(tris, np.uint32))
+
+
+def check_k1(torch, device, box, box_grid):
+    """K1 vs its twin: box36 on its full 256-class grid, icosphere(2) (320
+    triangles: the table needs the shared-memory opt-in) 1000 units from
+    the world origin on a ragged grid with an index offset, and zero-area
+    triangles. Returns (max_abs_err, ms, plain_ms) at box36's grid."""
+    from sdfgenfast_tpu_torch.mesh import Mesh, icosphere
+    from sdfgenfast_tpu_torch.ops import dense
+
+    def case(label, mesh, origin, dx, shape, off=(0, 0, 0)):
+        tris = tri_local(torch, device, mesh, origin)
+        table = dense._sep_coefs(tris).contiguous()
+        err = check_dense(torch, device, label, dense.dense_sep,
+                          dense.dense_sep_reference, table, tris, dx, shape,
+                          off)
+        return err, table
+
+    dx = float(np.float32(box_grid.dx))
+    err, table = case("K1 box36", box, box_grid.origin, dx, box_grid.shape)
+    sphere = icosphere(2, radius=1.0, center=(1000.03, 999.98, 1000.05))
+    err = max(err, case("K1 icosphere(2) at 1000", sphere,
+                        (998.6, 998.7, 998.65), 0.05, (37, 29, 53),
+                        (5, 3, 7))[0])
+    degen = Mesh(np.asarray([[0.5, 0.5, 0.5], [0.2, 0.3, 0.4],
+                             [0.9, 0.3, 0.4], [0.1, 0.9, 0.2],
+                             [0.8, 0.7, 0.9]], np.float32),
+                 np.asarray([[0, 0, 0], [1, 2, 2], [1, 3, 4]], np.uint32))
+    err = max(err, case("K1 zero-area", degen, (0, 0, 0), 0.05,
+                        (24, 20, 31))[0])
+    kw = dict(grid_shape=box_grid.shape)
+    ms = cuda_ms(torch, lambda: dense.dense_sep(table, dx, **kw), 10)
+    plain = cuda_ms(torch, lambda: dense.dense_sep_reference(table, dx, **kw),
+                    2)
+    return err, ms, plain
+
+
+def check_k1b(torch, device, torus, torus_grid):
+    """K1b vs its twin: the 1024-triangle torus on its 256-class grid and on
+    a ragged grid with an index offset. Returns (max_abs_err, ms, plain_ms)
+    at the 256-class grid."""
+    from sdfgenfast_tpu_torch.ops import dense
+
+    dx = float(np.float32(torus_grid.dx))
+    tris = tri_local(torch, device, torus, torus_grid.origin)
+    table = tris.reshape(-1, 9).T.contiguous()
+    err = check_dense(torch, device, "K1b torus1024", dense.dense_soa,
+                      dense.dense_soa_reference, table, tris, dx,
+                      torus_grid.shape)
+    err = max(err, check_dense(torch, device, "K1b torus1024 ragged",
+                               dense.dense_soa, dense.dense_soa_reference,
+                               table, tris, dx, (45, 38, 29), (60, 90, 20)))
+    kw = dict(grid_shape=torus_grid.shape)
+    ms = cuda_ms(torch, lambda: dense.dense_soa(table, dx, **kw), 10)
+    plain = cuda_ms(torch, lambda: dense.dense_soa_reference(table, dx, **kw),
+                    2)
+    return err, ms, plain
+
+
+def golden_bars(phi, grid, golden_path):
+    """The dense-golden bars of tests/test_parity_golden.py."""
+    from sdfgenfast_tpu_torch.io import sdf_io
+
+    golden, gmin, _ = sdf_io.read_sdf(golden_path)
+    if phi.shape != golden.shape or phi.shape != grid.shape:
+        raise AssertionError(f"grid {phi.shape} != golden {golden.shape}")
+    np.testing.assert_allclose(grid.bounds_min, gmin,
+                               atol=2e-6 * max(abs(gmin).max(), 1))
+    surf = np.minimum(np.abs(phi), np.abs(golden)) < 1e-5
+    mism = ((phi < 0) != (golden < 0)) & ~surf
+    if mism.sum():
+        raise AssertionError(f"{int(mism.sum())} sign mismatches")
+    near = np.abs(golden) < 2 * grid.dx
+    np.testing.assert_allclose(np.abs(phi)[near], np.abs(golden)[near],
+                               rtol=5e-5, atol=2e-6)
+    far = float(np.abs(np.abs(phi) - np.abs(golden)).max())
+    if not far < 0.2 * grid.dx:
+        raise AssertionError(f"far-field divergence {far:.3e} >= 0.2*dx")
+    return far / grid.dx
+
+
+def cli_goldens():
+    """The port's CLI, as subprocesses on the card, on the three box
+    goldens' arguments (tests/goldens/manifest.json); each output .sdf is
+    held to the golden bars and the reference's stdout lines."""
+    import shutil
+
+    from sdfgenfast_tpu_torch.grid import (sizing_mode1_legacy,
+                                           sizing_mode2a_proportional,
+                                           sizing_mode2b_manual)
+    from sdfgenfast_tpu_torch.io import mesh_io, sdf_io
+
+    with open(os.path.join(GOLDENS, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    work = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = {k: v for k, v in os.environ.items() if k != "SDFGEN_TORCH_BACKEND"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    names = sorted(k for k in manifest if k.startswith("box_"))
+    procs = {}
+    try:
+        for name in names:
+            entry = manifest[name]
+            shutil.copy(os.path.join(RESOURCES, entry["mesh"]), work)
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "sdfgenfast_tpu_torch.cli",
+                 entry["mesh"], *entry["cli_args"]], cwd=work, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        outs = {name: p.communicate(timeout=300) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name in names:
+        entry = manifest[name]
+        out, err = outs[name]
+        if procs[name].returncode != 0:
+            raise AssertionError(f"CLI {name} exited {procs[name].returncode}:"
+                                 f"\n{out[-2000:]}\n{err[-2000:]}")
+        for line in entry["stdout"] + ["Hardware: CUDA GPU"]:
+            if line not in out:
+                raise AssertionError(f"CLI {name}: {line!r} not in stdout")
+        mesh, mn, mx = mesh_io.load_mesh(os.path.join(RESOURCES, entry["mesh"]))
+        cli = entry["cli_args"]
+        if entry["mesh"].endswith(".stl"):
+            if len(cli) >= 5:
+                grid = sizing_mode2b_manual(mn, mx, *map(int, cli[:4]))
+            else:
+                grid = sizing_mode2a_proportional(mn, mx, int(cli[0]),
+                                                  int(cli[1]))
+        else:
+            grid = sizing_mode1_legacy(mn, mx, float(cli[0]), int(cli[1]))
+        phi, _, _ = sdf_io.read_sdf(os.path.join(
+            work, entry["reference_output_name"]))
+        far = golden_bars(phi, grid, os.path.join(GOLDENS, entry["golden"]))
+        print(f"CLI {name} {phi.shape} on the card: golden bars met "
+              f"(far field {far:.4f} dx)", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def check_exact_sample(label, mesh, grid, phi, n=4096):
+    """|phi| on `n` seeded random cells against the float64 exact distance
+    (tests/oracle.py) from the same float32 grid-local triangles and cell
+    positions the kernels use: the dense path is exact everywhere."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from oracle import point_triangle_distance_np
+
+    idx = np.random.default_rng(0).integers(0, phi.size, n)
+    ijk = np.stack(np.unravel_index(idx, grid.shape), 1)
+    p = (ijk.astype(np.float32) * np.float32(grid.dx)).astype(np.float64)
+    tl = (mesh.verts[mesh.tris.astype(np.int64)]
+          - np.asarray(grid.origin, np.float32)).astype(np.float64)
+    exact = np.concatenate([
+        point_triangle_distance_np(p[s:s + 256, None], tl[None, :, 0],
+                                   tl[None, :, 1], tl[None, :, 2]).min(axis=1)
+        for s in range(0, n, 256)])
+    np.testing.assert_allclose(np.abs(phi.reshape(-1)[idx]), exact,
+                               rtol=2e-5, atol=2e-6, err_msg=f"{label} exact")
+
+
+def check_dense_vs_binned(torch, device, label, mesh, grid, phi):
+    """A dense-path field against the float64 exact distance on a sample
+    of cells and against the binned path on the same grid: 0 sign
+    mismatches off the surface, the near band (|phi| < 2 dx) equal to the
+    golden band bar, and the binned far field never below the exact dense
+    one and less than 0.2 dx above it (the golden far-field bar). Returns
+    the largest gap in units of dx."""
+    from sdfgenfast_tpu_torch.pipeline import SDFConfig, make_level_set3
+
+    if not np.isfinite(phi).all() or phi.shape != grid.shape:
+        raise AssertionError(f"{label}: bad dense output")
+    check_exact_sample(label, mesh, grid, phi)
+    binned = make_level_set3(mesh, grid, SDFConfig(dense_max_tris=0),
+                             device=device).cpu().numpy()
+    a, b = np.abs(phi), np.abs(binned)
+    mism = int((((phi < 0) != (binned < 0)) & (np.minimum(a, b) > 1e-5)).sum())
+    if mism:
+        raise AssertionError(f"{label}: {mism} sign mismatches")
+    near = a < 2 * grid.dx
+    np.testing.assert_allclose(b[near], a[near], rtol=5e-5, atol=2e-6,
+                               err_msg=f"{label} near band")
+    gap = b - a
+    if (gap < -(2e-6 + 5e-5 * a)).any():
+        raise AssertionError(f"{label}: the binned path undercuts the exact "
+                             f"dense field by {-gap.min():.3e}")
+    worst = float(gap.max()) / grid.dx
+    if not worst < 0.2:
+        raise AssertionError(f"{label}: binned far field {worst:.4f} dx above")
+    print(f"{label} {grid.shape}: dense exact on a sample; vs the binned "
+          f"path 0 sign mismatches, band equal, binned far field above the "
+          f"exact one by at most {worst:.4f} dx (mean "
+          f"{float(gap.mean()) / grid.dx:.5f} dx; "
+          f"{int((gap > 0.05 * grid.dx).sum())} cells above 0.05 dx)",
+          flush=True)
+    return worst
+
+
 def check_golden(phi, golden_path, far_key, stride, grid):
     """The bars of tests/test_parity_golden.py's sparse-golden tests."""
     g = np.load(golden_path)
@@ -228,12 +495,15 @@ def check_golden(phi, golden_path, far_key, stride, grid):
 def main():
     import torch
 
-    from sdfgenfast_tpu_torch import generate_from_file, load_mesh, require_cuda
-    from sdfgenfast_tpu_torch.grid import sizing_python_api
+    from sdfgenfast_tpu_torch import (generate_from_file, generate_from_mesh,
+                                      generate_sdf, generate_sdf_batch,
+                                      load_mesh, require_cuda)
+    from sdfgenfast_tpu_torch.grid import (sizing_mode2a_proportional,
+                                           sizing_python_api)
     from sdfgenfast_tpu_torch.io import native
     from sdfgenfast_tpu_torch.kernels import build
-    from sdfgenfast_tpu_torch.mesh import Mesh
-    from sdfgenfast_tpu_torch.ops import band_kernel, vdt_kernel
+    from sdfgenfast_tpu_torch.mesh import Mesh, box_mesh, torus_mesh
+    from sdfgenfast_tpu_torch.ops import band_kernel, dense, vdt_kernel
     from sdfgenfast_tpu_torch.pipeline import bin_mesh, make_level_set3
 
     # -- 1. the card ---------------------------------------------------------
@@ -254,7 +524,12 @@ def main():
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     with open(lib_path + ".log") as fh:
         for line in fh:
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                # the kernel's name inside its mangled symbol
+                name = re.search(r"\d([a-z_]+_kernel)", line)
+                print("  ptxas:", name.group(1) if name else line.strip(),
+                      flush=True)
+            elif "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip(), flush=True)
 
     # -- 3. kernels vs twins at main-path shapes ---------------------------
@@ -271,11 +546,19 @@ def main():
         grids[n] = (Mesh(v, t), sizing_python_api(
             np.asarray(bounds[0], np.float32),
             np.asarray(bounds[1], np.float32), nx=n - 2))
+    box = box36(Mesh, box_mesh)
+    box_grid = sizing_mode2a_proportional(*box.bounds(), 256, 1)
+    torus = torus_mesh(32, 16)  # 1024 triangles: K1b
+    torus_grid = sizing_python_api(*torus.bounds(), nx=254)
+    if box_grid.shape != (256, 341, 425) or torus_grid.shape != (256, 256, 75):
+        raise AssertionError(f"dense grids {box_grid.shape} {torus_grid.shape}")
+    k1_err, k1_ms, k1_plain = check_k1(torch, device, box, box_grid)
+    k1b_err, k1b_ms, k1b_plain = check_k1b(torch, device, torus, torus_grid)
     k2_err, k2_ms, k2_plain = check_k2(torch, device, *grids[256])
     k3_err, k3_ms, k3_plain = check_k3(torch, device, grids[256][1].shape)
     k4_err, k4_ms, k4_plain = check_k4(torch, device, grids[256][1].shape)
 
-    # -- 4. the main path against the reference binary's goldens -------------
+    # -- 4a. the binned path against the reference binary's goldens --------
     band_kernel.band_rows.launches = 0
     vdt_kernel.round_phase.launches = 0
     vdt_kernel.chamfer.launches = 0
@@ -297,8 +580,53 @@ def main():
         "round_phase": vdt_kernel.round_phase.launches,
         "chamfer": vdt_kernel.chamfer.launches,
     }
-    print(f"main-path launches: {launches}", flush=True)
-    for name, count in launches.items():
+    print(f"binned-path launches: {launches}", flush=True)
+
+    # -- 4b. the dense path: CLI goldens, box36, torus1024, a batch ----------
+    cli_goldens()
+    dense.dense_sep.launches = 0
+    dense.dense_soa.launches = 0
+    t0 = time.perf_counter()
+    box_phi = generate_sdf(box.verts, box.tris, box_grid.origin, box_grid.dx,
+                           *box_grid.shape, device=device)
+    box_cold = time.perf_counter() - t0
+    torus_phi, torus_meta = generate_from_mesh(torus.verts, torus.tris,
+                                               nx=254, device=device)
+    launches.update(dense_sep=dense.dense_sep.launches,
+                    dense_soa=dense.dense_soa.launches)
+    print(f"dense-path launches: K1 {launches['dense_sep']}, K1b "
+          f"{launches['dense_soa']}; box36 cold call {box_cold:.3f} s",
+          flush=True)
+    if torus_meta["dx"] != torus_grid.dx or torus_phi.shape != torus_grid.shape:
+        raise AssertionError("generate_from_mesh sized the torus differently")
+    check_dense_vs_binned(torch, device, "box36", box, box_grid, box_phi)
+    check_dense_vs_binned(torch, device, "torus1024", torus, torus_grid,
+                          torus_phi)
+
+    sphere = grids[256][0]
+    batch = [box, torus, sphere]
+    lo = np.min([m.bounds()[0] for m in batch], axis=0)
+    hi = np.max([m.bounds()[1] for m in batch], axis=0)
+    bgrid = sizing_mode2a_proportional(lo, hi, 128, 1)
+    counters = (band_kernel.band_rows, vdt_kernel.round_phase,
+                vdt_kernel.chamfer, dense.dense_sep, dense.dense_soa)
+    for fn in counters:
+        fn.launches = 0
+    got = generate_sdf_batch([(m.verts, m.tris) for m in batch],
+                             bgrid.origin, bgrid.dx, *bgrid.shape,
+                             device=device)
+    batch_launches = [fn.launches for fn in counters]
+    for m, phi in zip(batch, got):
+        want = generate_sdf(m.verts, m.tris, bgrid.origin, bgrid.dx,
+                            *bgrid.shape, device=device)
+        if not np.array_equal(phi.view(np.int32), want.view(np.int32)):
+            raise AssertionError("generate_sdf_batch differs from single calls")
+    print(f"generate_sdf_batch [box36, torus1024, sphere82k] at {bgrid.shape}:"
+          f" equal to single calls; launches K2/K3/K4/K1/K1b {batch_launches}",
+          flush=True)
+    for name, count in list(launches.items()) + list(zip(
+            ("batch K2", "batch K3", "batch K4", "batch K1", "batch K1b"),
+            batch_launches)):
         if count <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
 
@@ -335,13 +663,56 @@ def main():
         print(f"[{card}] {n}^3 breakdown (median of {WARM_CALLS}): " + ", ".join(
             f"{k} {statistics.median(v) * 1e3:.1f} ms" for k, v in stages.items())
             + f"; peak device memory {peak:.2f} GiB", flush=True)
-    for name, ms, plain in (("K2 band_rows", k2_ms, k2_plain),
-                            ("K3 round (stride 1)", k3_ms, k3_plain),
-                            ("K4 chamfer (2 passes)", k4_ms, k4_plain)):
-        print(f"[{card}] {name} at 256^3: kernel {ms:.3f} ms, "
+    walls = []
+    for _ in range(WARM_CALLS):
+        t0 = time.perf_counter()
+        generate_sdf(box.verts, box.tris, box_grid.origin, box_grid.dx,
+                     *box_grid.shape, device=device)
+        walls.append(time.perf_counter() - t0)
+    print(f"[{card}] generate_sdf box36 {box_grid.shape}: median "
+          f"{statistics.median(walls) * 1e3:.1f} ms, min "
+          f"{min(walls) * 1e3:.1f} ms over {WARM_CALLS} warm calls "
+          f"(host parity + device + copy back)", flush=True)
+    stages = {"host bin_mesh (parity)": [], "device make_level_set3": [],
+              "copy to host": []}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(WARM_CALLS):
+        t0 = time.perf_counter()
+        binned = bin_mesh(box, box_grid)
+        t1 = time.perf_counter()
+        phi = make_level_set3(box, box_grid, binned=binned, device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        phi.cpu().numpy()
+        t3 = time.perf_counter()
+        for key, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+            stages[key].append(v)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] box36 {box_grid.shape} breakdown (median of "
+          f"{WARM_CALLS}): " + ", ".join(
+              f"{k} {statistics.median(v) * 1e3:.1f} ms"
+              for k, v in stages.items())
+          + f"; peak device memory {peak:.2f} GiB", flush=True)
+    for name, shape, ms, plain in (
+            ("K1 dense_sep (box36)", box_grid.shape, k1_ms, k1_plain),
+            ("K1b dense_soa (torus1024)", torus_grid.shape, k1b_ms, k1b_plain),
+            ("K2 band_rows", "256^3", k2_ms, k2_plain),
+            ("K3 round (stride 1)", "256^3", k3_ms, k3_plain),
+            ("K4 chamfer (2 passes)", "256^3", k4_ms, k4_plain)):
+        print(f"[{card}] {name} at {shape}: kernel {ms:.3f} ms, "
               f"plain torch {plain:.3f} ms", flush=True)
 
     kernels = [
+        {"name": "dense_sep", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/dense.cu",
+         "replaces": "sdfgenfast_tpu/ops/dense.py:141",
+         "launches": launches["dense_sep"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain},
+        {"name": "dense_soa", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/dense.cu",
+         "replaces": "sdfgenfast_tpu/ops/dense.py:254",
+         "launches": launches["dense_soa"], "max_abs_err": k1b_err,
+         "ms": k1b_ms, "plain_ms": k1b_plain},
         {"name": "band_rows", "route": "cuda",
          "source": "sdfgenfast_tpu_torch/csrc/band_rows.cu",
          "replaces": "sdfgenfast_tpu/ops/band_pallas.py:76",

@@ -1,21 +1,25 @@
 """sdfgenfast_tpu_torch — the PyTorch + CUDA port of ``sdfgenfast_tpu``.
 
-The binned exact path of the mesh -> signed-distance-field generator
-(meshes above the dense-path cap, default ``SDFConfig()``), with its three
-device kernels hand-written in CUDA for Hopper (``csrc/*.cu``, built on first
-use by ``kernels/build.py``) and plain-torch twins that run on CPU tensors.
-The JAX package ``sdfgenfast_tpu`` is the reference it is tested against;
-this package imports neither it nor JAX.
+The default ``SDFConfig()`` path of the mesh -> signed-distance-field
+generator, both halves: the dense path (meshes with at most 1024 triangles,
+kernels K1 and K1b) and the binned exact path (larger meshes, kernels K2, K3
+and K4). The kernels are hand-written in CUDA for Hopper (``csrc/*.cu``,
+built on first use by ``kernels/build.py``), each with a plain-torch twin
+that runs on CPU tensors. The JAX package ``sdfgenfast_tpu`` is the
+reference it is tested against; this package imports neither it nor JAX.
 
 Public surface, as the reference's ``sdfgen`` package: ``load_mesh,
 generate_sdf, save_sdf, load_sdf, is_gpu_available, generate_from_mesh,
-generate_from_file``, plus ``pipeline.make_level_set3``.
+generate_from_file``, plus ``generate_sdf_batch``,
+``pipeline.make_level_set3`` and the CLI (``python -m
+sdfgenfast_tpu_torch.cli``, the ``sdfgen-torch`` script).
 """
 
 __version__ = "0.1.0"
 
 from .api import (  # noqa: F401
     generate_from_file,
+    generate_sdf_batch,
     generate_from_mesh,
     generate_sdf,
     is_gpu_available,
@@ -36,6 +40,7 @@ __all__ = [
     "is_gpu_available",
     "generate_from_mesh",
     "generate_from_file",
+    "generate_sdf_batch",
     "GridSpec",
     "Mesh",
     "box_mesh",

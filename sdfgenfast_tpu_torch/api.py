@@ -6,6 +6,9 @@ validation and error types, plus a ``device`` argument. ``backend`` is
 when there is none (unlike the JAX package's ``"auto"``, which falls back to
 its CPU backend); only an explicit ``"cpu"`` runs the kernels' plain-torch
 twins on the CPU.
+
+``generate_sdf_batch`` runs many meshes on one grid, binning mesh k+1 on the
+host while mesh k's kernels run on the card.
 """
 
 from __future__ import annotations
@@ -19,10 +22,11 @@ from .grid import GridSpec, sizing_python_api
 from .io import mesh_io as _mesh_io
 from .io import sdf_io as _sdf_io
 from .mesh import Mesh
-from .pipeline import SDFConfig, make_level_set3
+from .pipeline import SDFConfig, bin_mesh, make_level_set3
 from .platform import is_cuda_available, resolve_device
 
 __all__ = [
+    "generate_sdf_batch",
     "load_mesh",
     "generate_sdf",
     "save_sdf",
@@ -108,6 +112,65 @@ def generate_sdf(
     config = SDFConfig(exact_band=exact_band, far_field=far_field)
     phi = make_level_set3(mesh, grid, config, device=dev)
     return phi.cpu().numpy()
+
+
+def generate_sdf_batch(
+    meshes,
+    origin,
+    dx: float,
+    nx: int,
+    ny: int,
+    nz: int,
+    exact_band: int = 1,
+    backend: str = "auto",
+    far_field: str = "exact",
+    device: Device = None,
+    device_mesh=None,
+):
+    """Generate SDFs for a batch of meshes on one shared grid.
+
+    `meshes` is a sequence of (vertices, triangles) pairs, each validated as
+    :func:`generate_sdf` validates its arrays. Returns a list of
+    (nx, ny, nz) float32 NumPy arrays, one per mesh, each equal to the
+    single call's result.
+
+    One-deep pipeline, as ``sdfgenfast_tpu.api.generate_sdf_batch``: mesh
+    k+1 is binned on the host while mesh k's kernels run (the device work
+    is launched without a host sync), then mesh k is copied back.
+    `device_mesh` (multi-GPU sharding) is not ported and raises
+    NotImplementedError.
+    """
+    if nx <= 0 or ny <= 0 or nz <= 0:
+        raise ValueError("Grid dimensions must be positive (nx, ny, nz > 0)")
+    if not (float(dx) > 0.0):
+        raise ValueError("Cell spacing dx must be positive")
+    if device_mesh is not None:
+        raise NotImplementedError(
+            "device_mesh (sharding over several GPUs) is not ported yet")
+    dev = resolve_device(backend, device)
+    grid = GridSpec(tuple(float(v) for v in origin), float(dx),
+                    (int(nx), int(ny), int(nz)))
+    config = SDFConfig(exact_band=exact_band, far_field=far_field)
+
+    validated = []
+    for vertices, triangles in meshes:
+        v, t = _validate_mesh_arrays(vertices, triangles)
+        if v.shape[0] == 0 or t.shape[0] == 0:
+            raise ValueError(
+                "Cannot generate SDF from empty mesh "
+                "(vertices or triangles are empty)")
+        validated.append(Mesh(v, t))
+
+    out = []
+    pending = None  # device result of the previous mesh, maybe still running
+    for mesh in validated:
+        binned = bin_mesh(mesh, grid, config)
+        if pending is not None:
+            out.append(pending.cpu().numpy())
+        pending = make_level_set3(mesh, grid, config, binned, device=dev)
+    if pending is not None:
+        out.append(pending.cpu().numpy())
+    return out
 
 
 def save_sdf(filename: str, sdf_array: np.ndarray, origin, dx: float) -> None:

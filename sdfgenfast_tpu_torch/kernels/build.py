@@ -2,9 +2,10 @@
 
 The sources are ``sdfgenfast_tpu_torch/csrc/*.cu``, each a kernel plus a
 plain C entry point that launches it on a given stream and returns
-``cudaGetLastError()``. They are compiled with ``nvcc`` into one shared
-library for Hopper (``sm_90a``) and loaded through ``ctypes``; nothing
-includes PyTorch's headers, so a build takes seconds.
+``cudaGetLastError()``. Each source is compiled by its own ``nvcc`` process,
+all started together, for Hopper (``sm_90a``); the objects are linked into
+one shared library loaded through ``ctypes``. Nothing includes PyTorch's
+headers, so a build takes seconds.
 
 The library lands in ``build/sdfgenfast_tpu_torch/`` at the repository root,
 named by a hash of the sources and flags, so an edited source rebuilds on
@@ -29,9 +30,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sdfgenfast_tpu_torch")
 
 # no fast math: IEEE sqrt and division; --fmad=false keeps every product and
 # sum rounded on its own, like the PyTorch twins' separate elementwise ops
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-    "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-O3", "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,6 +45,8 @@ _SIGNATURES = {
                       _P, _P, _P, _P, _P, _P],
     "sdf_vdt_round": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "sdf_chamfer_pass": [_P, _P, _I, _I, _I, _F, _F, _F, _P],
+    "sdf_dense_sep": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    "sdf_dense_soa": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -86,14 +90,44 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    with open(path + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise KernelBuildError(f"nvcc failed ({r.returncode}):\n{r.stderr[-4000:]}")
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(sources(), objs)]
+    log, failed = [], []
+    procs = []
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        for cmd, proc in zip(cmds, procs):
+            out, err = proc.communicate(timeout=600)
+            log.append(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+        if not failed:
+            tmp = f"{path}.{tag}"
+            cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+            r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            log.append(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+            if r.returncode != 0:
+                failed.append(f"link ({r.returncode}):\n{r.stderr[-4000:]}")
+            else:
+                os.replace(tmp, path)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        with open(path + ".log", "w") as fh:
+            fh.write("\n".join(log))
+    if failed:
+        raise KernelBuildError("nvcc failed: " + "\n".join(failed))
     return path
 
 

@@ -1,0 +1,261 @@
+"""Dense all-triangles distance field: kernels K1 and K1b.
+
+Counterpart of ``sdfgenfast_tpu/ops/dense.py``. For meshes with few
+triangles (the reference's benchmark box has 36) every cell is evaluated
+against every triangle: the exact unsigned distance and the lowest-id
+closest triangle of every cell, with no band binning and no far-field
+propagation.
+
+Two kernels share :func:`dense_distance_field`, with the JAX package's gate:
+
+1. **K1, separable** (:func:`dense_sep`, M <= ``_SEP_MAX_TRIS``): every
+   affine-in-p quantity of the point-triangle distance (plane distance,
+   barycentric weights, edge parameters) comes from a per-triangle
+   (40, M) coefficient table (:func:`_sep_coefs`), grouped exactly as the
+   Pallas kernel groups its row and lane halves, plus a plane-bound cull.
+2. **K1b, structure of arrays** (:func:`dense_soa`, M <= ``DENSE_MAX_TRIS``):
+   one triangle per step through ``geometry.point_triangle_distance_sq_soa``
+   over a (9, M) vertex table.
+
+Both merge triangles in ascending id order with a strict ``<``, so ties keep
+the lowest id (cpu_lib/makelevelset3.cpp:215-218). Coordinates are
+grid-local: the origin is subtracted from the triangles once, and cell
+(i, j, k) sits at ``f32(i + offset) * dx``.
+
+Each wrapper launches its CUDA kernel (``csrc/dense.cu``) for a CUDA tensor
+and runs its plain-torch twin (:func:`dense_sep_reference`,
+:func:`dense_soa_reference`) for a CPU tensor. ``dense_sep.launches`` and
+``dense_soa.launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import build
+from .geometry import point_triangle_distance_sq_soa
+from .vdt import sqrt_f32
+
+__all__ = ["DENSE_MAX_TRIS", "dense_distance_field", "dense_sep",
+           "dense_sep_reference", "dense_soa", "dense_soa_reference"]
+
+# The JAX package's gates: the separable kernel's table at 384 triangles is
+# 60 KB, the SoA table at 1024 is 36 KB. Above DENSE_MAX_TRIS the binned
+# path wins (dense cost grows as cells x triangles).
+DENSE_MAX_TRIS = 1024
+_SEP_MAX_TRIS = 384
+_NC = 40  # rows of the separable coefficient table
+
+
+def _dot(u, v):
+    return u[:, 0] * v[:, 0] + u[:, 1] * v[:, 1] + u[:, 2] * v[:, 2]
+
+
+def _sep_coefs(tri_verts):
+    """(M, 3, 3) float32 -> (40, M) float32 per-triangle coefficient table,
+    the row layout of ``sdfgenfast_tpu.ops.dense._sep_coefs``:
+
+      0:3 b, 3:6 c, 6:15 the edge vectors a-b, a-c, b-c, 15:27 the three
+      edge parameters s = e.p + e0 as [ex, ey, ez, e0], 27:31 the unit
+      normal and plane offset, 31:39 the barycentric weights w23 and w31 as
+      affine forms, 39 the degenerate flag (cross product squared <= 1e-30).
+    """
+    a = tri_verts[:, 0, :]
+    b = tri_verts[:, 1, :]
+    c = tri_verts[:, 2, :]
+
+    def edge(x1, x2):
+        w = x1 - x2
+        inv = 1.0 / torch.clamp(_dot(w, w), min=1e-30)
+        return w, w * inv[:, None], -_dot(x2, w) * inv
+
+    w_ab, e_ab, e0_ab = edge(a, b)
+    w_ac, e_ac, e0_ac = edge(a, c)
+    w_bc, e_bc, e0_bc = edge(b, c)
+
+    x13 = a - c
+    x23 = b - c
+    m13 = _dot(x13, x13)
+    m23 = _dot(x23, x23)
+    d = _dot(x13, x23)
+    invdet = 1.0 / torch.clamp(m13 * m23 - d * d, min=1e-30)
+    g23 = invdet[:, None] * (m23[:, None] * x13 - d[:, None] * x23)
+    g23c = -_dot(g23, c)
+    g31 = invdet[:, None] * (m13[:, None] * x23 - d[:, None] * x13)
+    g31c = -_dot(g31, c)
+
+    cr = torch.stack([x13[:, 1] * x23[:, 2] - x13[:, 2] * x23[:, 1],
+                      x13[:, 2] * x23[:, 0] - x13[:, 0] * x23[:, 2],
+                      x13[:, 0] * x23[:, 1] - x13[:, 1] * x23[:, 0]], dim=1)
+    cr2 = _dot(cr, cr)
+    n = cr / sqrt_f32(torch.clamp(cr2, min=1e-37))[:, None]
+    h0 = -_dot(n, c)
+    degen = (cr2 <= 1e-30).to(torch.float32)
+
+    return torch.cat([
+        b.T, c.T,
+        w_ab.T, w_ac.T, w_bc.T,
+        e_ab.T, e0_ab[None], e_ac.T, e0_ac[None], e_bc.T, e0_bc[None],
+        n.T, h0[None],
+        g23.T, g23c[None], g31.T, g31c[None],
+        degen[None],
+    ], dim=0)
+
+
+def _cell_axes(grid_shape, dx: float, ijk_offset, device):
+    """Cell coordinates f32(index + offset) * dx as (ni,1,1), (1,nj,1) and
+    (1,1,nk) tensors."""
+    axes = []
+    for ax, (n, off) in enumerate(zip(grid_shape, ijk_offset)):
+        shape = [1, 1, 1]
+        shape[ax] = n
+        idx = torch.arange(off, off + n, device=device)
+        axes.append((idx.to(torch.float32) * dx).reshape(shape))
+    return tuple(axes)
+
+
+def _merge(best, best_t, d2, t):
+    better = d2 < best
+    return torch.where(better, d2, best), torch.where(better, t, best_t)
+
+
+def _init(grid_shape, device):
+    return (torch.full(grid_shape, float("inf"), dtype=torch.float32,
+                       device=device),
+            torch.full(grid_shape, -1, dtype=torch.int32, device=device))
+
+
+def dense_sep_reference(coef, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
+    """Plain-torch twin of :func:`dense_sep`: the same per-triangle
+    arithmetic over the whole grid, one triangle at a time, without the
+    cull (the cull never changes a result in exact arithmetic)."""
+    x, y, z = _cell_axes(grid_shape, dx, ijk_offset, coef.device)
+    best, best_t = _init(grid_shape, coef.device)
+
+    def edge_d2(su, sv, wx, wy, wz, ux, uy, uz):
+        s = torch.clamp(su + sv, 0.0, 1.0)
+        ddx = ux - s * wx
+        ddy = uy - s * wy
+        ddz = uz - s * wz
+        return ddx * ddx + ddy * ddy + ddz * ddz
+
+    for t in range(coef.shape[1]):
+        cf = coef[:, t]
+        h = (cf[27] * x + (cf[28] * y + cf[30])) + cf[29] * z
+        din = h * h
+        w23u = cf[31] * x + (cf[32] * y + cf[34])
+        w23v = cf[33] * z
+        w31u = cf[35] * x + (cf[36] * y + cf[38])
+        w31v = cf[37] * z
+        w12u = 1.0 - w23u - w31u
+        w12v = -(w23v + w31v)
+        inside = (torch.minimum(torch.minimum(w23u + w23v, w31u + w31v),
+                                w12u + w12v) >= 0.0) & (cf[39] < 0.5)
+        ubx, uby, ubz = x - cf[0], y - cf[1], z - cf[2]
+        ucx, ucy, ucz = x - cf[3], y - cf[4], z - cf[5]
+        d_ab = edge_d2(cf[15] * x + (cf[16] * y + cf[18]), cf[17] * z,
+                       cf[6], cf[7], cf[8], ubx, uby, ubz)
+        d_ac = edge_d2(cf[19] * x + (cf[20] * y + cf[22]), cf[21] * z,
+                       cf[9], cf[10], cf[11], ucx, ucy, ucz)
+        d_bc = edge_d2(cf[23] * x + (cf[24] * y + cf[26]), cf[25] * z,
+                       cf[12], cf[13], cf[14], ucx, ucy, ucz)
+        d2 = torch.where(inside, din,
+                         torch.minimum(d_ab, torch.minimum(d_ac, d_bc)))
+        best, best_t = _merge(best, best_t, d2, t)
+    return sqrt_f32(best), best_t
+
+
+def dense_soa_reference(tri9, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
+    """Plain-torch twin of :func:`dense_soa`: one triangle at a time through
+    ``point_triangle_distance_sq_soa`` over the whole grid."""
+    p = _cell_axes(grid_shape, dx, ijk_offset, tri9.device)
+    best, best_t = _init(grid_shape, tri9.device)
+    for t in range(tri9.shape[1]):
+        v = tri9[:, t]
+        d2 = point_triangle_distance_sq_soa(
+            p, (v[0], v[1], v[2]), (v[3], v[4], v[5]), (v[6], v[7], v[8]))
+        best, best_t = _merge(best, best_t, d2, t)
+    return sqrt_f32(best), best_t
+
+
+def _check_table(table, rows: int, name: str):
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[0] != rows:
+        raise ValueError(f"{name}: table must be ({rows}, M) float32, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+
+
+def _launch(entry: str, table, dx: float, grid_shape, ijk_offset):
+    if table.device.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {table.device}")
+    table = table.contiguous()
+    phi = torch.empty(grid_shape, dtype=torch.float32, device=table.device)
+    tid = torch.empty(grid_shape, dtype=torch.int32, device=table.device)
+    lib = build.library()
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(getattr(lib, entry)(
+            table.data_ptr(), table.shape[1], *grid_shape, *ijk_offset,
+            float(dx), phi.data_ptr(), tid.data_ptr(), stream), entry)
+    return phi, tid
+
+
+def dense_sep(coef, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
+    """(phi, tid) over the whole grid from the (40, M) table of
+    :func:`_sep_coefs`. CUDA: one K1 launch. CPU: :func:`dense_sep_reference`."""
+    _check_table(coef, _NC, "dense_sep")
+    if coef.device.type == "cpu":
+        return dense_sep_reference(coef, dx, grid_shape=grid_shape,
+                                   ijk_offset=ijk_offset)
+    out = _launch("sdf_dense_sep", coef, dx, grid_shape, ijk_offset)
+    dense_sep.launches += 1
+    return out
+
+
+dense_sep.launches = 0
+
+
+def dense_soa(tri9, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
+    """(phi, tid) over the whole grid from the (9, M) vertex table
+    (a, b, c by rows). CUDA: one K1b launch. CPU: :func:`dense_soa_reference`."""
+    _check_table(tri9, 9, "dense_soa")
+    if tri9.device.type == "cpu":
+        return dense_soa_reference(tri9, dx, grid_shape=grid_shape,
+                                   ijk_offset=ijk_offset)
+    out = _launch("sdf_dense_soa", tri9, dx, grid_shape, ijk_offset)
+    dense_soa.launches += 1
+    return out
+
+
+dense_soa.launches = 0
+
+
+def dense_distance_field(tri_verts, origin, dx, *, grid_shape, ijk_offset=None):
+    """Exact min distance and lowest-id closest triangle of every cell.
+
+    tri_verts: (M, 3, 3) float32 tensor; origin: (3,) (tensor or sequence);
+    dx: a float32-representable scalar; ijk_offset: optional (3,) integer
+    shift of the cell indices (cells use global indices). Returns (phi, tid):
+    (ni, nj, nk) float32 unsigned distances and int32 ids, on the device of
+    tri_verts. K1 for M <= 384, K1b for M <= 1024, ValueError above.
+    """
+    if (tri_verts.dtype != torch.float32 or tri_verts.dim() != 3
+            or tuple(tri_verts.shape[1:]) != (3, 3)):
+        raise ValueError(f"tri_verts must be (M, 3, 3) float32, got "
+                         f"{tuple(tri_verts.shape)} {tri_verts.dtype}")
+    m = int(tri_verts.shape[0])
+    if m > DENSE_MAX_TRIS:
+        raise ValueError(
+            f"dense path capped at {DENSE_MAX_TRIS} triangles, got {m}")
+    grid_shape = tuple(int(n) for n in grid_shape)
+    off = (0, 0, 0) if ijk_offset is None else tuple(int(v) for v in ijk_offset)
+    dx = float(np.float32(float(dx)))
+    origin = torch.as_tensor(origin, dtype=torch.float32,
+                             device=tri_verts.device)
+    # grid-local coordinates: coefficients stay O(mesh extent), not
+    # O(|origin|), for meshes far from the world origin
+    tri_local = tri_verts - origin
+    kw = dict(grid_shape=grid_shape, ijk_offset=off)
+    if m <= _SEP_MAX_TRIS:
+        return dense_sep(_sep_coefs(tri_local).contiguous(), dx, **kw)
+    return dense_soa(tri_local.reshape(m, 9).T.contiguous(), dx, **kw)

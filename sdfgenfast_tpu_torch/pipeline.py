@@ -1,11 +1,20 @@
-"""End-to-end SDF pipeline for the binned exact path, in PyTorch.
+"""End-to-end SDF pipeline in PyTorch: the dense and the binned exact path.
 
 Counterpart of ``sdfgenfast_tpu/pipeline.py`` for the default
 ``SDFConfig()`` (``far_field="exact"``, ``sign_mode="host"``,
-``parity_transport="auto"``) on meshes above the dense-path cap:
+``parity_transport="auto"``). The path splits on the triangle count
+(:func:`use_dense`), as in the JAX package.
 
-  1. host: native band binning into CSR candidate segments + x-ray parity
-     (crossings or bit-packed), exactly the JAX package's host layer;
+Dense path (at most ``dense_max_tris`` triangles, :func:`dense_sign_core`):
+
+  1. host: the x-ray parity (crossings or bit-packed), no band binning;
+  2. device: vertex gather -> K1 (<= 384 triangles) or K1b (<= 1024): the
+     exact distance of every cell to every triangle -> sign from the parity.
+
+Binned exact path (:func:`exact_core`):
+
+  1. host: native band binning into CSR candidate segments + x-ray parity,
+     exactly the JAX package's host layer;
   2. device: K2 band kernel (exact band distances, winner ids, closest
      points) -> untile -> freeze mask;
   3. device: the coarse-to-fine closest-point pyramid, its Jacobi rounds in
@@ -15,11 +24,10 @@ Counterpart of ``sdfgenfast_tpu/pipeline.py`` for the default
 Every step takes an explicit ``torch.device``. CUDA tensors go through the
 hand-written kernels; CPU tensors through their plain-torch twins.
 
-Not in this slice (each raises ``NotImplementedError``): the dense path
-(meshes with at most ``dense_max_tris`` triangles; kernel K1),
-``sign_mode="device"``, ``far_field`` other than ``"exact"``, the flat or
-capped jump-flood ladder (``vdt_max_hop`` / ``vdt_extra_rounds``), tile
-shapes other than 8^3, and vertex gradients.
+Not ported yet (each raises ``NotImplementedError``): ``sign_mode="device"``,
+``far_field`` other than ``"exact"``, the flat or capped jump-flood ladder
+(``vdt_max_hop`` / ``vdt_extra_rounds``) and band tile shapes other than 8^3
+on the binned path, and vertex gradients.
 """
 
 from __future__ import annotations
@@ -35,15 +43,16 @@ from .grid import GridSpec
 from .mesh import Mesh
 from .ops import band as band_ops
 from .ops import band_kernel
+from .ops import dense as dense_ops
 from .ops import sign_host as sign_host_ops
 from .ops import tiled as tiled_ops
 from .ops import vdt as vdt_ops
 from .ops import vdt_kernel
 
 __all__ = ["SDFConfig", "Binned", "bin_mesh", "binned_from_arrays",
-           "exact_core", "make_level_set3", "use_dense"]
+           "dense_sign_core", "exact_core", "make_level_set3", "use_dense"]
 
-DENSE_MAX_TRIS = 1024  # sdfgenfast_tpu/ops/dense.py DENSE_MAX_TRIS
+DENSE_MAX_TRIS = dense_ops.DENSE_MAX_TRIS
 _DEFAULT_TILE_2D = (8, 128)  # sdfgenfast_tpu/ops/sign.py DEFAULT_TILE_2D
 
 
@@ -73,6 +82,7 @@ class SDFConfig:
 class Binned:
     """Host-side preprocessing product (NumPy arrays).
 
+    tiles_dim and band_csr are None on the dense path, which bins nothing.
     tiles_dim: (nti, ntj, ntk) 8^3-tile grid; band_csr: the K2 kernel's CSR
     layout — "pair" (P,) candidate ids (sentinel M pads), "off"/"cnt"/"ids"
     (A_pad,) per-active-tile segment starts, lengths and linear tile ids
@@ -85,8 +95,8 @@ class Binned:
     grid: GridSpec
     config: SDFConfig
     tris: np.ndarray  # (M, 3) int32
-    tiles_dim: Tuple[int, int, int]
-    band_csr: dict
+    tiles_dim: Optional[Tuple[int, int, int]] = None
+    band_csr: Optional[dict] = None
     parity_packed: Optional[np.ndarray] = None
     parity_crossings: Optional[np.ndarray] = None
     seed_band: int = 3
@@ -125,7 +135,7 @@ def use_dense(config: SDFConfig, num_tris: int) -> bool:
 
 
 def check_supported(config: SDFConfig, num_tris: int) -> None:
-    """Raise NotImplementedError for every path outside this slice."""
+    """Raise NotImplementedError for every path not ported yet."""
     if config.far_field != "exact":
         raise NotImplementedError(
             f"far_field={config.far_field!r} is not ported yet (only 'exact')")
@@ -133,18 +143,14 @@ def check_supported(config: SDFConfig, num_tris: int) -> None:
         if config.sign_mode != "device":
             raise ValueError(f"unknown sign_mode: {config.sign_mode}")
         raise NotImplementedError("sign_mode='device' is not ported yet")
+    if use_dense(config, num_tris):
+        return  # the dense path has no ladder and no band tiles
     if config.vdt_max_hop is not None or config.vdt_extra_rounds is not None:
         raise NotImplementedError(
             "vdt_max_hop / vdt_extra_rounds (flat or capped jump-flood "
             "ladder) are not ported yet; only the default pyramid schedule")
     if tuple(config.tile_shape) != (8, 8, 8):
         raise NotImplementedError("only 8x8x8 band tiles are ported")
-    if use_dense(config, num_tris):
-        raise NotImplementedError(
-            f"meshes with at most {min(config.dense_max_tris, DENSE_MAX_TRIS)}"
-            " triangles take the dense path, whose kernel (K1, "
-            "sdfgenfast_tpu/ops/dense.py::_sep_kernel) is the next to port; "
-            "pass SDFConfig(dense_max_tris=0) to run them on the binned path")
 
 
 def _host_parity_choose(mesh, grid, mode, min_cross_rows=0):
@@ -170,9 +176,15 @@ def _host_parity_choose(mesh, grid, mode, min_cross_rows=0):
 def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
              min_cross_rows: int = 0) -> Binned:
     """Host-side preprocessing for :func:`make_level_set3` (host sign mode):
-    band binning into the CSR layout and the x-ray parity."""
+    the x-ray parity, plus band binning into the CSR layout on the binned
+    path. `min_cross_rows` pads the crossings transport's row count."""
     mesh.validate_indices()
     check_supported(config, len(mesh.tris))
+    packed, cross = _host_parity_choose(mesh, grid, config.parity_transport,
+                                        min_cross_rows)
+    if use_dense(config, len(mesh.tris)):
+        return Binned(grid, config, mesh.tris.astype(np.int32),
+                      parity_packed=packed, parity_crossings=cross)
     # a >=3-cell seed band makes the far field's 27-neighbourhood union
     # cover the true closest triangle for near-band cells
     seed_band = max(config.exact_band, 3)
@@ -190,26 +202,35 @@ def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
     ids = np.pad(bb.active_ids, (0, A_pad - bb.num_active))
     ids[bb.num_active:] = int(np.prod(bb.tiles_dim))
     csr = {"pair": pair, "off": off, "cnt": cnt, "kcap": kcap, "ids": ids}
-    packed, cross = _host_parity_choose(mesh, grid, config.parity_transport,
-                                        min_cross_rows)
     return Binned(grid, config, mesh.tris.astype(np.int32), bb.tiles_dim,
                   csr, packed, cross, seed_band)
 
 
-def binned_from_arrays(grid: GridSpec, config: SDFConfig, *, tris, tiles_dim,
-                       pair, off, cnt, ids, kcap, parity_packed=None,
-                       parity_crossings=None, seed_band: int = 3) -> Binned:
+def binned_from_arrays(grid: GridSpec, config: SDFConfig, *, tris,
+                       tiles_dim=None, pair=None, off=None, cnt=None, ids=None,
+                       kcap=None, parity_packed=None, parity_crossings=None,
+                       seed_band: int = 3) -> Binned:
     """Build the port's Binned from another binning's NumPy arrays (e.g. a
     ``sdfgenfast_tpu`` Binned: ``band.active_ids``/``band_csr`` entries and
-    its parity), so both packages can run from identical host state."""
+    its parity), so both packages can run from identical host state. A dense
+    Binned carries the triangles and the parity only: leave every band
+    array None."""
     if (parity_packed is None) == (parity_crossings is None):
         raise ValueError("give exactly one of parity_packed / parity_crossings")
-    csr = {"pair": np.asarray(pair, np.int32), "off": np.asarray(off, np.int32),
-           "cnt": np.asarray(cnt, np.int32), "ids": np.asarray(ids, np.int32),
-           "kcap": int(kcap)}
+    band = (tiles_dim, pair, off, cnt, ids, kcap)
+    if all(v is None for v in band):
+        tiles_dim = csr = None
+    elif any(v is None for v in band):
+        raise ValueError("give all of tiles_dim, pair, off, cnt, ids, kcap "
+                         "(binned path) or none of them (dense path)")
+    else:
+        tiles_dim = tuple(int(v) for v in tiles_dim)
+        csr = {"pair": np.asarray(pair, np.int32),
+               "off": np.asarray(off, np.int32),
+               "cnt": np.asarray(cnt, np.int32),
+               "ids": np.asarray(ids, np.int32), "kcap": int(kcap)}
     return Binned(
-        grid, config, np.asarray(tris, np.int32),
-        tuple(int(v) for v in tiles_dim), csr,
+        grid, config, np.asarray(tris, np.int32), tiles_dim, csr,
         None if parity_packed is None else np.asarray(parity_packed, np.uint8),
         None if parity_crossings is None
         else np.asarray(parity_crossings, np.int16),
@@ -222,6 +243,20 @@ def _parity_device(parity_data, ni):
     if parity_data.dtype == torch.int16:
         return sign_host_ops.parity_from_crossings_device(parity_data, ni)
     return sign_host_ops.unpack_parity_device(parity_data, ni)
+
+
+def dense_sign_core(verts, tris, parity_data, origin, dx: float, *,
+                    grid_shape):
+    """The dense path on device tensors (``sdfgenfast_tpu.pipeline.
+    _dense_sign_core``): vertex gather -> K1 / K1b -> sign from the parity.
+
+    verts (N, 3) f32, tris (M, 3) int32, parity_data (uint8 packed or int16
+    crossings), origin (3,) f32, all on one device; dx a float32-
+    representable float. Returns (signed phi, tid), each (ni, nj, nk)."""
+    phi, tid = dense_ops.dense_distance_field(
+        verts[tris.long()], origin, dx, grid_shape=grid_shape)
+    parity = _parity_device(parity_data, grid_shape[0])
+    return torch.where(parity, -phi, phi), tid
 
 
 def exact_core(verts, tris, band_ids, pair, tile_off, tile_cnt, parity_data,
@@ -294,14 +329,22 @@ def make_level_set3(mesh: Mesh, grid: GridSpec,
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    csr = binned.band_csr
     parity = (binned.parity_packed if binned.parity_packed is not None
               else binned.parity_crossings)
     dx = float(np.float32(grid.dx))
+    origin = dev(np.asarray(grid.origin, np.float32))
+    if use_dense(config, len(mesh.tris)):
+        phi, tid = dense_sign_core(dev(mesh.verts), dev(binned.tris),
+                                   dev(parity), origin, dx,
+                                   grid_shape=grid.shape)
+        return (phi, tid) if return_tid else phi
+    csr = binned.band_csr
+    if csr is None:
+        raise ValueError("this Binned holds no band binning (it was made for "
+                         "the dense path); bin the mesh with this config")
     phi, tid = exact_core(
         dev(mesh.verts), dev(binned.tris), dev(csr["ids"]), dev(csr["pair"]),
-        dev(csr["off"]), dev(csr["cnt"]), dev(parity),
-        dev(np.asarray(grid.origin, np.float32)), dx,
+        dev(csr["off"]), dev(csr["cnt"]), dev(parity), origin, dx,
         grid_shape=grid.shape, tiles_dim=binned.tiles_dim,
         # the freeze threshold is capped by the band actually binned with
         seed_band=min(max(config.exact_band, 3), binned.seed_band),

@@ -1,0 +1,424 @@
+"""The PyTorch port's dense path (kernels K1 and K1b: their plain twins on
+the CPU) against the JAX package, the float64 oracle and the reference
+binary's box goldens, plus the batch API.
+
+The JAX side runs ``sdfgenfast_tpu.ops.dense.dense_distance_field`` in
+Pallas interpret mode on the CPU, as tests/test_dense.py does. Bars, port vs
+JAX: phi within rtol 2e-6 / atol 1e-6 (XLA contracts products and sums into
+FMAs under jit, the port rounds every operation on its own, as the CUDA
+kernels built with --fmad=false do); ids equal except where the two ids'
+float64 distances tie to that same bar."""
+
+import json
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sdfgenfast_tpu as J
+import sdfgenfast_tpu_torch as P
+from sdfgenfast_tpu.ops import dense as jdense
+from sdfgenfast_tpu.ops import geometry as jgeom
+from sdfgenfast_tpu_torch import grid as pgrid
+from sdfgenfast_tpu_torch import pipeline as ppipe
+from sdfgenfast_tpu_torch.io import mesh_io, sdf_io
+from sdfgenfast_tpu_torch.ops import dense as pdense
+from sdfgenfast_tpu_torch.ops import geometry as pgeom
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from oracle import brute_force_sdf, point_triangle_distance_np  # noqa: E402
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CPU = torch.device("cpu")
+RTOL, ATOL = 2e-6, 1e-6
+
+# One intra-op thread: the suite runs in several worker processes at
+# once, and a PyTorch CPU thread pool per worker oversubscribes the cores.
+torch.set_num_threads(1)
+
+
+def _tri_verts(mesh, tris=None):
+    tris = mesh.tris if tris is None else tris
+    return mesh.verts[tris.astype(np.int64)]
+
+
+def _both(tv, origin, dx, gs, off=None):
+    """(JAX phi, JAX tid, port phi, port tid) as NumPy arrays."""
+    origin = np.asarray(origin, np.float32)
+    pj, tj = jdense.dense_distance_field(
+        jnp.asarray(tv), jnp.asarray(origin), jnp.float32(dx), grid_shape=gs,
+        ijk_offset=None if off is None else jnp.asarray(off, jnp.int32))
+    pp, tp = pdense.dense_distance_field(torch.from_numpy(tv), origin, dx,
+                                         grid_shape=gs, ijk_offset=off)
+    return np.asarray(pj), np.asarray(tj), pp.numpy(), tp.numpy()
+
+
+def _assert_ids_tie(tv, origin, dx, gs, off, tid_a, tid_b):
+    """Where the ids differ, both ids' exact distances (float64, from the
+    float32 grid-local triangles and cell positions) tie to the phi bar."""
+    mism = (tid_a != tid_b).reshape(-1)
+    if not mism.any():
+        return
+    o = np.zeros(3, np.int64) if off is None else np.asarray(off, np.int64)
+    idx = np.stack(np.meshgrid(*[np.arange(n) for n in gs], indexing="ij"),
+                   -1).reshape(-1, 3)[mism] + o
+    p = (idx.astype(np.float32) * np.float32(dx)).astype(np.float64)
+    tl = (tv - np.asarray(origin, np.float32)).astype(np.float64)
+    a, b = tid_a.reshape(-1)[mism], tid_b.reshape(-1)[mism]
+    da = point_triangle_distance_np(p, tl[a, 0], tl[a, 1], tl[a, 2])
+    db = point_triangle_distance_np(p, tl[b, 0], tl[b, 1], tl[b, 2])
+    np.testing.assert_allclose(da, db, rtol=RTOL, atol=ATOL,
+                               err_msg="ids differ at a non-tie")
+
+
+def _ico1(off=0.0):
+    return P.icosphere(1, radius=1.0,
+                       center=(off + 0.05, off - 0.03, off + 0.08))
+
+
+def _ico3():
+    return P.icosphere(3, radius=1.0, center=(0.02, -0.01, 0.03))
+
+
+# -- geometry ---------------------------------------------------------------
+
+
+def test_point_triangle_distance_sq_soa_matches_jax():
+    rng = np.random.default_rng(0)
+    p = rng.normal(size=(3, 2000)).astype(np.float32)
+    tri = rng.normal(size=(3, 3, 2000)).astype(np.float32)
+    tri[:, :, :100] = tri[0:1, :, :100]  # zero-area: a point
+    tri[2, :, 100:200] = tri[1, :, 100:200]  # a segment
+    args = (p, tri[0], tri[1], tri[2])
+    want = np.asarray(jgeom.point_triangle_distance_sq_soa(
+        *(tuple(jnp.asarray(v) for v in x) for x in args)))
+    got = pgeom.point_triangle_distance_sq_soa(
+        *(tuple(torch.from_numpy(v) for v in x) for x in args)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    exact = point_triangle_distance_np(
+        p.T.astype(np.float64), *(tri[i].T.astype(np.float64) for i in range(3)))
+    np.testing.assert_allclose(np.sqrt(got), exact, rtol=2e-5, atol=2e-6)
+
+
+# -- the coefficient table ----------------------------------------------------
+
+
+@pytest.mark.parametrize("sub,center,origin", [
+    (1, (0.05, -0.03, 0.08), (-1.31, -1.24, -1.18)),
+    (3, (0.02, -0.01, 0.03), (-1.2, -1.15, -1.1)),
+    (1, (1000.05, 999.97, 1000.08), (998.69, 998.76, 998.82)),
+])
+def test_sep_coefs_match_jax(sub, center, origin):
+    tl = (_tri_verts(P.icosphere(sub, radius=1.0, center=center))[:384]
+          - np.asarray(origin, np.float32))
+    tl[0] = tl[0, 0]  # a zero-area triangle: degenerate flag, row 39
+    got = pdense._sep_coefs(torch.from_numpy(tl)).numpy()
+    assert got.shape == (40, len(tl)) and got[39, 0] == 1.0
+    # JAX's table evaluated one operation at a time: bit-equal
+    with jax.disable_jit():
+        eager = np.asarray(jdense._sep_coefs(jnp.asarray(tl)))
+    np.testing.assert_array_equal(got.view(np.int32), eager.view(np.int32))
+    # as its dense path computes it, under jit: rows 0-14 (differences of
+    # vertices) and 39 (the flag) bit-equal; the rest within 8 ulps of each
+    # row's largest magnitude, because XLA's CPU compiler contracts a*b+c
+    # into FMAs and rewrites x/sqrt(y) under jit
+    jitted = np.asarray(jax.jit(jdense._sep_coefs)(jnp.asarray(tl)))
+    for r in list(range(15)) + [39]:
+        np.testing.assert_array_equal(got[r], jitted[r], err_msg=f"row {r}")
+    scale = np.spacing(np.abs(jitted).max(axis=1))
+    assert (np.abs(got - jitted).max(axis=1) <= 8 * scale).all()
+
+
+# -- the twins against the JAX kernels and the oracle -----------------------
+
+
+def _case(name):
+    """(tri_verts, origin, dx, grid_shape, ijk_offset, oracle rtol/atol)."""
+    ico1 = _tri_verts(_ico1())
+    o1 = (-1.31, -1.24, -1.18)
+    if name == "ico1":
+        return ico1, o1, 0.17, (14, 17, 19), None, (2e-5, 2e-6)
+    if name == "ico1_offset":
+        return ico1, o1, 0.17, (9, 8, 7), (3, 5, 6), (2e-5, 2e-6)
+    if name == "ico1_at_1000":
+        return (_tri_verts(_ico1(1000.0)), (998.69, 998.76, 998.82), 0.17,
+                (14, 17, 19), None, (2e-4, 2e-4))
+    # zero-area triangles: the oracle's barycentric branch does not hold
+    # for them, test_degenerate_triangle_values checks their values
+    if name == "point":
+        return (np.full((1, 3, 3), 0.5, np.float32), (0, 0, 0), 0.1,
+                (10, 10, 10), None, None)
+    if name == "segment":
+        return (np.asarray([[[0.2, 0.5, 0.5], [0.8, 0.5, 0.5],
+                             [0.8, 0.5, 0.5]]], np.float32), (0, 0, 0), 0.1,
+                (10, 10, 10), None, None)
+    m = _ico3()
+    if name == "ico3_512":  # K1b
+        return (_tri_verts(m, m.tris[:512]), (-1.2, -1.15, -1.1), 0.24,
+                (9, 10, 11), None, (2e-5, 2e-6))
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["ico1", "ico1_offset", "ico1_at_1000",
+                                  "point", "segment", "ico3_512"])
+def test_dense_matches_jax_and_oracle(name):
+    tv, origin, dx, gs, off, oracle_tol = _case(name)
+    pj, tj, pp, tp = _both(tv, origin, dx, gs, off)
+    assert pp.shape == gs and pp.dtype == np.float32 and tp.dtype == np.int32
+    np.testing.assert_allclose(pp, pj, rtol=RTOL, atol=ATOL)
+    _assert_ids_tie(tv, origin, dx, gs, off, tj, tp)
+    assert (tp >= 0).all() and (tp < len(tv)).all()
+    if oracle_tol is None:
+        return
+    # the float64 oracle on the grid's world positions (offset included)
+    o = np.zeros(3) if off is None else np.asarray(off)
+    world = np.float32(origin) + np.float32(o) * np.float32(dx)
+    verts = tv.reshape(-1, 3)
+    ref = np.abs(brute_force_sdf(verts, np.arange(len(verts)).reshape(-1, 3),
+                                 world, dx, gs))
+    np.testing.assert_allclose(pp, ref, rtol=oracle_tol[0], atol=oracle_tol[1])
+
+
+def test_degenerate_triangle_values():
+    tv, origin, dx, gs, _, _ = _case("point")
+    phi, tid = pdense.dense_distance_field(torch.from_numpy(tv), origin, dx,
+                                           grid_shape=gs)
+    idx = np.stack(np.meshgrid(*[np.arange(10)] * 3, indexing="ij"), -1)
+    np.testing.assert_allclose(phi.numpy(),
+                               np.linalg.norm(idx * 0.1 - 0.5, axis=-1),
+                               rtol=1e-5, atol=1e-6)
+    assert (tid.numpy() == 0).all()
+    tv, origin, dx, gs, _, _ = _case("segment")
+    phi, _ = pdense.dense_distance_field(torch.from_numpy(tv), origin, dx,
+                                         grid_shape=gs)
+    # (0.5, 0.5, 0.5) lies on the segment; (0.5, 0.5, 0.8) is 0.3 off it
+    assert float(phi[5, 5, 5]) < 1e-6
+    np.testing.assert_allclose(float(phi[5, 5, 8]), 0.3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("m,kernel", [(384, "sep"), (385, "soa"),
+                                      (1024, "soa")])
+def test_gate_selects_kernel_and_matches_jax(m, kernel, monkeypatch):
+    mesh = _ico3()
+    tv = _tri_verts(mesh, mesh.tris[:m])
+    origin, dx, gs = (-1.2, -1.15, -1.1), 0.5, (5, 6, 7)
+    called = []
+    for name in ("sep", "soa"):
+        fn = getattr(pdense, f"dense_{name}")
+        monkeypatch.setattr(
+            pdense, f"dense_{name}",
+            lambda *a, _fn=fn, _n=name, **k: called.append(_n) or _fn(*a, **k))
+    pj, tj, pp, tp = _both(tv, origin, dx, gs)
+    assert called == [kernel]
+    np.testing.assert_allclose(pp, pj, rtol=RTOL, atol=ATOL)
+    _assert_ids_tie(tv, origin, dx, gs, None, tj, tp)
+
+
+def test_gate_rejects_above_cap():
+    mesh = P.icosphere(3)
+    tv = torch.from_numpy(_tri_verts(mesh, mesh.tris[:1025]))
+    with pytest.raises(ValueError, match="1024"):
+        pdense.dense_distance_field(tv, (0, 0, 0), 0.1, grid_shape=(4, 4, 4))
+    with pytest.raises(ValueError):
+        pdense.dense_distance_field(tv[:10].double(), (0, 0, 0), 0.1,
+                                    grid_shape=(4, 4, 4))
+
+
+def test_twins_agree_on_one_mesh():
+    """K1's and K1b's twins compute one field: equal to the JAX bar, and the
+    sep twin equals a direct call of dense_sep_reference."""
+    mesh = _ico3()
+    tl = torch.from_numpy(_tri_verts(mesh, mesh.tris[:200])
+                          - np.float32([-1.2, -1.15, -1.1]))
+    kw = dict(grid_shape=(7, 8, 9), ijk_offset=(1, 0, 2))
+    ps, ts = pdense.dense_sep(pdense._sep_coefs(tl), 0.3, **kw)
+    pr, tr = pdense.dense_sep_reference(pdense._sep_coefs(tl), 0.3, **kw)
+    assert torch.equal(ps, pr) and torch.equal(ts, tr)
+    po, to = pdense.dense_soa(tl.reshape(-1, 9).T.contiguous(), 0.3, **kw)
+    np.testing.assert_allclose(ps.numpy(), po.numpy(), rtol=RTOL, atol=ATOL)
+    assert pdense.dense_sep.launches == pdense.dense_soa.launches == 0
+
+
+# -- the pipeline ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("transport", ["auto", "packed", "crossings"])
+def test_dense_bin_mesh_parity_byte_equal(transport):
+    mesh = P.icosphere(2, radius=1.0, center=(0.1, -0.05, 0.07))
+    grid = pgrid.GridSpec((-1.5, -1.5, -1.5), 0.14, (22, 23, 24))
+    bj = J.bin_mesh(J.Mesh(mesh.verts, mesh.tris),
+                    J.GridSpec(grid.origin, grid.dx, grid.shape),
+                    J.SDFConfig(parity_transport=transport))
+    bp = P.bin_mesh(mesh, grid, P.SDFConfig(parity_transport=transport))
+    assert bj.band is None and bp.band_csr is None and bp.tiles_dim is None
+    np.testing.assert_array_equal(bp.tris, bj.tris)
+    for name in ("parity_packed", "parity_crossings"):
+        a, b = getattr(bp, name), getattr(bj, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+
+
+@pytest.fixture(scope="module")
+def ico2_run():
+    pmesh = P.icosphere(2, radius=1.0, center=(0.1, -0.05, 0.07))
+    grid = pgrid.GridSpec((-1.5, -1.5, -1.5), 0.14, (22, 23, 24))
+    jgrid = J.GridSpec(grid.origin, grid.dx, grid.shape)
+    jmesh = J.Mesh(pmesh.verts, pmesh.tris)
+    jb = J.bin_mesh(jmesh, jgrid, J.SDFConfig())
+    jphi, jtid = J.make_level_set3(jmesh, jgrid, J.SDFConfig(), binned=jb,
+                                   return_tid=True)
+    binned = ppipe.binned_from_arrays(
+        grid, P.SDFConfig(), tris=jb.tris, parity_packed=jb.parity_packed,
+        parity_crossings=jb.parity_crossings)
+    phi, tid = P.make_level_set3(pmesh, grid, binned=binned, device=CPU,
+                                 return_tid=True)
+    return dict(mesh=pmesh, grid=grid, jphi=np.asarray(jphi),
+                jtid=np.asarray(jtid), phi=phi.numpy(), tid=tid.numpy())
+
+
+def test_make_level_set3_dense_matches_jax(ico2_run):
+    r = ico2_run
+    phi, jphi = r["phi"], r["jphi"]
+    assert phi.shape == r["grid"].shape
+    off_surface = np.minimum(np.abs(phi), np.abs(jphi)) > 1e-5
+    assert (((phi < 0) != (jphi < 0)) & off_surface).sum() == 0
+    np.testing.assert_allclose(phi, jphi, rtol=RTOL, atol=ATOL)
+    tv = _tri_verts(r["mesh"])
+    _assert_ids_tie(tv, r["grid"].origin, r["grid"].dx, r["grid"].shape,
+                    None, r["jtid"], r["tid"])
+
+
+def test_make_level_set3_dense_own_binning(ico2_run):
+    r = ico2_run
+    phi = P.make_level_set3(r["mesh"], r["grid"], device=CPU).numpy()
+    np.testing.assert_array_equal(phi.view(np.int32), r["phi"].view(np.int32))
+
+
+def test_dense_equals_binned_path(ico2_run):
+    r = ico2_run
+    binned = P.make_level_set3(r["mesh"], r["grid"],
+                               P.SDFConfig(dense_max_tris=0),
+                               device=CPU).numpy()
+    phi = r["phi"]
+    off_surface = np.minimum(np.abs(phi), np.abs(binned)) > 1e-5
+    assert (((phi < 0) != (binned < 0)) & off_surface).sum() == 0
+    np.testing.assert_allclose(phi, binned, atol=0.05 * r["grid"].dx)
+
+
+def test_dense_far_field_matches_oracle():
+    mesh = P.box_mesh((3, 4, 5), (-1, -1, -1))
+    grid = pgrid.GridSpec((-1.5, -1.5, -1.5), 0.5, (14, 16, 18))
+    phi = P.make_level_set3(mesh, grid, device=CPU).numpy()
+    ref, parity = brute_force_sdf(mesh.verts, mesh.tris, grid.origin, grid.dx,
+                                  grid.shape, return_parity=True)
+    np.testing.assert_allclose(np.abs(phi), np.abs(ref), rtol=5e-5, atol=2e-6)
+    assert ((phi < 0) == parity)[np.abs(ref) > 1e-5].all()
+
+
+def test_dense_binned_without_band_rejected_on_binned_path():
+    mesh = P.box_mesh((1, 2, 3))
+    grid = pgrid.GridSpec((-0.5, -0.5, -0.5), 0.25, (8, 12, 16))
+    dense = P.bin_mesh(mesh, grid)
+    with pytest.raises(ValueError, match="band"):
+        P.make_level_set3(mesh, grid, P.SDFConfig(dense_max_tris=0), dense,
+                          device=CPU)
+    with pytest.raises(ValueError):
+        ppipe.binned_from_arrays(grid, P.SDFConfig(), tris=dense.tris,
+                                 tiles_dim=(1, 2, 2),
+                                 parity_packed=dense.parity_packed)
+
+
+# -- the reference binary's box goldens, on the CPU ---------------------------
+
+
+with open(os.path.join(HERE, "goldens", "manifest.json")) as _fh:
+    MANIFEST = json.load(_fh)
+BOX_GOLDENS = sorted(k for k in MANIFEST if k.startswith("box_"))
+
+
+def golden_grid(name):
+    """The CLI's sizing of a manifest entry (tests/test_parity_golden.py)."""
+    entry = MANIFEST[name]
+    mesh, mn, mx = mesh_io.load_mesh(os.path.join(HERE, "resources",
+                                                  entry["mesh"]))
+    cli = entry["cli_args"]
+    if entry["mesh"].endswith(".stl"):
+        if len(cli) >= 5:
+            grid = pgrid.sizing_mode2b_manual(mn, mx, *map(int, cli[:4]))
+        else:
+            grid = pgrid.sizing_mode2a_proportional(mn, mx, int(cli[0]),
+                                                    int(cli[1]))
+    else:
+        grid = pgrid.sizing_mode1_legacy(mn, mx, float(cli[0]), int(cli[1]))
+    return mesh, grid, entry
+
+
+def assert_golden_bars(phi, grid, entry):
+    """The bars of tests/test_parity_golden.py."""
+    golden, gmin, _ = sdf_io.read_sdf(os.path.join(HERE, "goldens",
+                                                   entry["golden"]))
+    assert phi.shape == golden.shape == grid.shape
+    np.testing.assert_allclose(grid.bounds_min, gmin,
+                               atol=2e-6 * max(abs(gmin).max(), 1))
+    surf = np.minimum(np.abs(phi), np.abs(golden)) < 1e-5
+    assert (((phi < 0) != (golden < 0)) & ~surf).sum() == 0
+    near = np.abs(golden) < 2 * grid.dx
+    np.testing.assert_allclose(np.abs(phi)[near], np.abs(golden)[near],
+                               rtol=5e-5, atol=2e-6)
+    assert np.abs(np.abs(phi) - np.abs(golden)).max() < 0.2 * grid.dx
+
+
+@pytest.mark.parametrize("name", BOX_GOLDENS)
+def test_box_golden_dense_cpu(name):
+    mesh, grid, entry = golden_grid(name)
+    assert ppipe.use_dense(P.SDFConfig(), mesh.num_tris)
+    assert_golden_bars(P.make_level_set3(mesh, grid, device=CPU).numpy(),
+                       grid, entry)
+
+
+# -- the batch API --------------------------------------------------------
+
+
+def test_generate_sdf_batch_equals_single_calls():
+    box = P.box_mesh((3, 4, 5), (-1.5, -2, -2.5))
+    torus = P.torus_mesh(8, 6, R=1.5, r=0.5)
+    sphere = P.icosphere(3, radius=1.8)  # 1280 triangles: the binned path
+    meshes = [(m.verts, m.tris) for m in (box, torus, sphere)]
+    args = ((-2.5, -3.0, -3.5), 0.25, 21, 25, 29)
+    out = P.generate_sdf_batch(meshes, *args, backend="cpu")
+    assert len(out) == 3
+    for (v, t), got in zip(meshes, out):
+        want = P.generate_sdf(v, t, *args, backend="cpu")
+        assert got.dtype == np.float32 and got.shape == (21, 25, 29)
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert P.generate_sdf_batch([], *args, backend="cpu") == []
+
+
+def test_generate_sdf_batch_errors():
+    box = P.box_mesh((1, 2, 3))
+    ok = [(box.verts, box.tris)]
+    args = ((0, 0, 0), 0.25, 8, 8, 8)
+    for bad in (((0, 0, 0), 0.25, 8, 0, 8), ((0, 0, 0), 0.0, 8, 8, 8)):
+        with pytest.raises(ValueError):
+            P.generate_sdf_batch(ok, *bad, backend="cpu")
+    with pytest.raises(ValueError):
+        P.generate_sdf_batch([(np.zeros((0, 3)), box.tris)], *args,
+                             backend="cpu")
+    with pytest.raises(ValueError):
+        P.generate_sdf_batch([(box.verts, -box.tris.astype(np.int32) - 1)],
+                             *args, backend="cpu")
+    with pytest.raises(TypeError):
+        P.generate_sdf_batch([(box.verts[:, :2], box.tris)], *args,
+                             backend="cpu")
+    with pytest.raises(NotImplementedError):
+        P.generate_sdf_batch(ok, *args, backend="cpu", device_mesh=object())
+    with pytest.raises(ValueError):
+        P.generate_sdf_batch(ok, *args, backend="tpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            P.generate_sdf_batch(ok, *args)

@@ -119,6 +119,8 @@ def test_import_needs_no_jax_and_no_nvcc():
         "sys.meta_path.insert(0, Block())\n"
         "import sdfgenfast_tpu_torch, sdfgenfast_tpu_torch.api\n"
         "import sdfgenfast_tpu_torch.ops.band_kernel, sdfgenfast_tpu_torch.ops.vdt_kernel\n"
+        "import sdfgenfast_tpu_torch.ops.dense, sdfgenfast_tpu_torch.ops.geometry\n"
+        "import sdfgenfast_tpu_torch.cli, sdfgenfast_tpu_torch.io.vti\n"
         "import sdfgenfast_tpu_torch.kernels.build as b\n"
         "assert 'jax' not in sys.modules and 'sdfgenfast_tpu' not in sys.modules\n"
         "assert b._lib is None\n"
@@ -146,7 +148,7 @@ def test_require_cuda_and_backend_resolution():
 
 
 @pytest.mark.parametrize("cfg,tris", [
-    (dict(), 1000),                      # dense path: kernel K1, next to port
+    (dict(sign_mode="device"), 1000),    # dense path, device sign
     (dict(dense_max_tris=0, far_field="eikonal"), 2000),
     (dict(dense_max_tris=0, far_field="propagate"), 2000),
     (dict(dense_max_tris=0, sign_mode="device"), 2000),
@@ -160,10 +162,19 @@ def test_unported_paths_raise(cfg, tris):
 
 
 def test_dense_mesh_raises_through_api():
+    """A dense mesh (12 triangles) runs through the API on the CPU and
+    matches the float64 oracle; bad arguments still raise ValueError."""
+    from oracle import brute_force_sdf
+
     box = P.box_mesh((1.0, 2.0, 3.0))
-    with pytest.raises(NotImplementedError, match="dense"):
-        P.generate_sdf(box.verts, box.tris, (-0.5, -0.5, -0.5), 0.25, 8, 12,
-                       16, backend="cpu")
+    origin, dx, shape = (-0.5, -0.5, -0.5), 0.25, (8, 12, 16)
+    assert ppipe.use_dense(P.SDFConfig(), box.num_tris)
+    phi = P.generate_sdf(box.verts, box.tris, origin, dx, *shape,
+                         backend="cpu")
+    ref, parity = brute_force_sdf(box.verts, box.tris, origin, dx, shape,
+                                  return_parity=True)
+    np.testing.assert_allclose(np.abs(phi), np.abs(ref), rtol=5e-5, atol=2e-6)
+    assert ((phi < 0) == parity)[np.abs(ref) > 1e-5].all()
     with pytest.raises(ValueError):
         P.generate_sdf(box.verts, box.tris, (0, 0, 0), 0.25, 8, 0, 8,
                        backend="cpu")
