@@ -9,17 +9,23 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      host library (make);
   3. each kernel against its plain-torch twin on the card, at the shapes the
      main path gives it (K1 dense separable, K1b dense SoA, K2 band rows, K3
-     jump-flood round, K4 chamfer);
+     jump-flood round, K4 chamfer, the probes P1-P4; R1/R1b in phase 4d);
   4. the main path, both halves. Binned: ``generate_from_file`` on the
      81,920-triangle sphere at 256^3 and 512^3, held against the reference
      binary's sparse goldens (bars of tests/test_parity_golden.py). Dense:
      the CLI (``python -m sdfgenfast_tpu_torch.cli``) on the three box
      goldens, box36 at 256 x 341 x 425 and a 1024-triangle torus at
      256 x 256 x 75 held against the binned path, and a small
-     ``generate_sdf_batch``. Each path's launch counters are set to 0 just
-     before it and must have moved just after;
+     ``generate_sdf_batch``. The probe tool (``tools.micro_bench.run``, with
+     the SASS instruction counts of its loops). The differentiable path: one
+     ``models.SDFGenerator.train_step`` on sphere82k at 256^3 (binned) and
+     box36 (dense, K1), R1/R1b against their twins and a finite difference
+     of the loss. Each path's launch counters are set to 0 just before it
+     and must have moved just after;
   5. wall time per call (median and min of warm calls, host work and the
-     copy back included) and each kernel's time next to its twin's.
+     copy back included), each kernel's time next to its twin's, and the
+     differentiable step's forward and forward+backward next to the same
+     step with R1/R1b swapped for their twins.
 
 Prints one JSON line of per-kernel results, then the card line, then, as the
 last line, ``{"ok": true, "device": {...}}``. Exits non-zero on any failure.
@@ -492,6 +498,320 @@ def check_golden(phi, golden_path, far_key, stride, grid):
     return far / float(g["dx"])
 
 
+def sass_counts(lib_path):
+    """FFMA / FMUL / FADD counts of each probe kernel's SASS (cuobjdump), or
+    None without cuobjdump: a folded loop would show a handful."""
+    import shutil
+
+    tool = next((c for c in (os.path.join(os.environ.get("CUDA_HOME", ""),
+                                          "bin", "cuobjdump"),
+                             "/usr/local/cuda/bin/cuobjdump")
+                 if os.path.isfile(c)), shutil.which("cuobjdump"))
+    if tool is None:
+        return None
+    r = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                       text=True, timeout=120)
+    if r.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {r.stderr[-2000:]}")
+    counts, name = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"FFMA": 0, "FMUL": 0, "FADD": 0}
+        elif name is not None:
+            op = re.search(r"\b(FFMA|FMUL|FADD)\b", line)
+            if op:
+                counts[name][op.group(1)] += 1
+    return {k: v for k, v in counts.items()
+            if re.search(r"vpu_peak|vpu_mixed|scale2|add1", k)}
+
+
+def finite_err(torch, got, want):
+    """Largest |got - want| where both are finite (0.0 if none)."""
+    both = torch.isfinite(got) & torch.isfinite(want)
+    if not both.any():
+        return 0.0
+    return float((got[both].double() - want[both].double()).abs().max())
+
+
+def same_bits(torch, got, want):
+    """Bit for bit, every NaN counted equal to every NaN."""
+    eq = bits(torch, got) == bits(torch, want)
+    return bool((eq | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def check_probes(torch, device):
+    """P1-P4 against their twins at the tool's shapes: ones (the tool's
+    input) and a seeded input in [-1.5, 1.5]; P1/P2 also on a 4-step chain
+    whose values stay finite. Bars: P1 without FMA, P2, P3 and P4 bit for
+    bit, non-finite values included; P1 with FMA within 1 ulp of the twin
+    that adds in float64 and rounds once, or both non-finite. Returns
+    {name: (max_abs_err, plain_ms)}."""
+    from sdfgenfast_tpu_torch.tools import micro_bench as mb
+
+    rng = np.random.default_rng(3)
+
+    def inputs(shape):
+        return (torch.ones(shape, dtype=torch.float32, device=device),
+                torch.from_numpy(rng.uniform(-1.5, 1.5, shape).astype(
+                    np.float32)).to(device))
+
+    out = {}
+    for fma in (False, True):
+        name = "vpu_peak_fma" if fma else "vpu_peak"
+        err = 0.0
+        for x in inputs(mb.VPU_SHAPE):
+            for chain in (mb.PEAK_CHAIN, 4):
+                got = mb.vpu_peak(x, chain, fma)
+                want = mb.vpu_peak_reference(x, chain, fma)
+                if fma:
+                    fin = torch.isfinite(want)
+                    if not torch.equal(torch.isfinite(got), fin):
+                        raise AssertionError("P1 fma: finite patterns differ")
+                    ulps = (bits(torch, got[fin]).long()
+                            - bits(torch, want[fin]).long()).abs()
+                    if ulps.numel() and int(ulps.max()) > 1:
+                        raise AssertionError(f"P1 fma: {int(ulps.max())} ulps")
+                elif not same_bits(torch, got, want):
+                    raise AssertionError(f"P1 chain {chain}: differs from twin")
+                err = max(err, finite_err(torch, got, want))
+        x = inputs(mb.VPU_SHAPE)[0]
+        plain = cuda_ms(torch, lambda: mb.vpu_peak_reference(
+            x, mb.PEAK_CHAIN, fma), 2)
+        out[name] = (err, plain)
+    err = 0.0
+    for x in inputs(mb.VPU_SHAPE):
+        for chain in (mb.MIXED_CHAIN, 4):
+            got = mb.vpu_mixed(x, chain)
+            want = mb.vpu_mixed_reference(x, chain)
+            if not same_bits(torch, got, want):
+                raise AssertionError(f"P2 chain {chain}: differs from twin")
+            err = max(err, finite_err(torch, got, want))
+    x = inputs(mb.VPU_SHAPE)[0]
+    out["vpu_mixed"] = (err, cuda_ms(torch, lambda: mb.vpu_mixed_reference(
+        x, mb.MIXED_CHAIN), 2))
+    for n_blocks, rows in mb.GRID_CASES:
+        err = 0.0
+        for x in inputs((n_blocks * rows, mb.GRID_COLS)):
+            got = mb.grid_overhead(x, n_blocks)
+            want = mb.grid_overhead_reference(x, n_blocks)
+            if not same_bits(torch, got, want):
+                raise AssertionError(f"P3 {n_blocks} blocks: differs")
+            err = max(err, finite_err(torch, got, want))
+        out[f"grid_overhead_b{rows}"] = (err, cuda_ms(
+            torch, lambda: mb.grid_overhead_reference(x, n_blocks), 10))
+    err = 0.0
+    for x in inputs(mb.HBM_SHAPE):
+        got = mb.hbm_stream(x)
+        want = mb.hbm_stream_reference(x)
+        if not same_bits(torch, got, want):
+            raise AssertionError("P4: differs from its twin")
+        err = max(err, finite_err(torch, got, want))
+    out["hbm_stream"] = (err, cuda_ms(
+        torch, lambda: mb.hbm_stream_reference(x), 10))
+    del x, got, want
+    print("P1-P4 vs twins: P1 (both variants), P2, P3 (both block sizes) "
+          "and P4 held at the tool's shapes (P1 fma within 1 ulp, the rest "
+          "bit-equal, non-finite values included)", flush=True)
+    return out
+
+
+def vertex_grad(torch, tris, g_tri, n_verts):
+    """(M, 3, 3) triangle-vertex gradient -> (N, 3) vertex gradient."""
+    g = torch.zeros((n_verts, 3), dtype=torch.float64, device=g_tri.device)
+    g.index_add_(0, tris.reshape(-1), g_tri.reshape(-1, 3).double())
+    return g
+
+
+def differentiable_half(torch, device, label, mesh, grid, counters):
+    """The differentiable path through ``models.SDFGenerator`` on one mesh:
+    target = forward of the 0.95-scaled vertices; counters set to 0, one
+    ``train_step``, counters read. Then, on that step's ids and parity: R1
+    against its twin (phi rtol 2e-6), R1b against its twin's autograd
+    gradient (1e-4 of the largest vertex gradient), R1b run twice bit for
+    bit, and a central finite difference of the float64-summed loss along
+    u = g/|g| against <g, u> = |g|, ids frozen, away from the surface: rtol
+    1e-3 through R1, 1e-4 in float64 through the twin (the full forward's
+    is printed). Returns a dict of results and
+    the step's tensors for the timings."""
+    from sdfgenfast_tpu_torch.models import SDFGenerator
+    from sdfgenfast_tpu_torch.ops import recompute as rc
+    from sdfgenfast_tpu_torch.pipeline import _parity_device, make_level_set3
+
+    t0 = time.perf_counter()
+    model = SDFGenerator(mesh, grid, device=device)
+    bin_s = time.perf_counter() - t0
+    v0 = model.params
+    with torch.no_grad():
+        target = model.forward(v0 * 0.95)
+    for fn in counters:
+        fn.launches = 0
+    new, loss = model.train_step(v0, target, lr=1e-2)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    loss = float(loss)
+    if not (np.isfinite(loss) and loss > 0):
+        raise AssertionError(f"{label}: loss {loss}")
+    if not bool(torch.isfinite(new).all()) or torch.equal(new, v0):
+        raise AssertionError(f"{label}: the step did not move the vertices")
+
+    # the step's ids (the forward is deterministic), parity and gradient
+    with torch.no_grad():
+        _, tid = make_level_set3(mesh, grid, model.config, model.binned,
+                                 device=device, return_tid=True)
+    binned = model.binned
+    parity = _parity_device(torch.from_numpy(
+        binned.parity_packed if binned.parity_packed is not None
+        else binned.parity_crossings).to(device), grid.shape[0])
+    tris = torch.from_numpy(binned.tris.astype(np.int64)).to(device)
+    origin = tuple(float(o) for o in np.asarray(grid.origin, np.float32))
+    dx = float(np.float32(grid.dx))
+    upper = float(np.float32(sum(grid.shape)) * np.float32(dx))
+    tv = v0[tris].contiguous()
+    n = tid.numel()
+
+    phi = rc.recompute_forward(tv, tid, parity, origin, dx, upper)
+    twin = rc.recompute_forward_reference(tv, tid, parity, origin, dx, upper)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(phi.cpu().numpy(), twin.cpu().numpy(),
+                               rtol=2e-6, atol=0, err_msg=f"{label} R1")
+    r1_err = abs_err(phi, twin)
+    r1_bits = int((bits(torch, phi) != bits(torch, twin)).sum())
+    gphi = ((2.0 / n) * (phi - target)).contiguous()
+    g1 = rc.recompute_backward(tv, tid, parity, gphi, origin, dx, upper)
+    g2 = rc.recompute_backward(tv, tid, parity, gphi, origin, dx, upper)
+    gt = rc.recompute_backward_reference(tv, tid, parity, gphi, origin, dx,
+                                         upper)
+    torch.cuda.synchronize()
+    if not torch.equal(bits(torch, g1), bits(torch, g2)):
+        raise AssertionError(f"{label}: two R1b runs differ")
+    if not bool(torch.isfinite(g1).all()):
+        raise AssertionError(f"{label}: non-finite R1b gradient")
+    gv, gvt = (vertex_grad(torch, tris, g, len(mesh.verts)) for g in (g1, gt))
+    scale = float(gvt.abs().max())
+    r1b_err = float((gv - gvt).abs().max())
+    tri_rel = float((g1 - gt).abs().max()) / float(gt.abs().max())
+    if not (scale > 0 and r1b_err <= 1e-4 * scale):
+        raise AssertionError(f"{label} R1b: max err {r1b_err:.3e} vs "
+                             f"1e-4 * {scale:.3e}")
+    # which of the two float32 gradients the difference belongs to: both
+    # against the twin's reverse mode taken in float64
+    g64 = vertex_grad(torch, tris, rc.recompute_backward_reference(
+        tv.double(), tid, parity, gphi, origin, dx, upper), len(mesh.verts))
+    print(f"{label} R1 vs twin: {n} cells, max|err| {r1_err:.3e}, "
+          f"{r1_bits} cells not bit-equal; R1b vs twin (autograd): vertex "
+          f"gradient max|err| {r1b_err:.3e} = {r1b_err / scale:.2e} of "
+          f"max|g| {scale:.3e} (triangle level {tri_rel:.2e}); against the "
+          f"float64 reverse mode R1b {float((gv - g64).abs().max()) / scale:.2e}"
+          f", twin {float((gvt - g64).abs().max()) / scale:.2e}; two R1b runs "
+          f"bit-equal", flush=True)
+
+    # The directional finite difference, with the ids frozen. phi = sign *
+    # |d| has a kink at d = 0, where the float32 gradient is rounding noise
+    # and a central difference reads ~0 (whole grid planes lie on box36's
+    # faces), so the loss here counts the cells farther from the surface
+    # than any vertex moves: |phi| > 2 * step, step = 0.01 dx.
+    step = 0.01 * dx
+    mask = (phi.abs() > 2 * step).to(torch.float32)
+    v = v0.clone().requires_grad_()
+    phi_v = rc.recompute_stage(v[tris], tid, parity, origin, dx)
+    (g,) = torch.autograd.grad((mask * (phi_v - target) ** 2).mean(), v)
+    gnorm = float(g.double().norm())
+    if not (np.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"{label}: gradient norm {gnorm}")
+    u = (g.double() / gnorm).float()
+    eps = step / float(u.norm(dim=1).max())
+    tgt64, mask64 = target.double(), mask.double()
+
+    def loss64(phi_, m=mask64):
+        return float((m * (phi_.double() - tgt64) ** 2).mean())
+
+    with torch.no_grad():
+        frozen = [loss64(rc.recompute_forward(
+            (v0 + s * eps * u)[tris].contiguous(), tid, parity, origin, dx,
+            upper)) for s in (1.0, -1.0)]
+        # through the whole forward (ids recomputed, every cell counted):
+        # reported, not held; the binned far field's ids may switch
+        full = [loss64(model.forward(v0 + s * eps * u), 1.0)
+                for s in (1.0, -1.0)]
+        # the same function evaluated in float64 by the twin (positions
+        # still rounded to float32 as the kernels take them): no rounding
+        # noise, so a 100x shorter step keeps the kinks of the second
+        # derivative (cells on region boundaries) out of the difference
+        eps64 = eps / 100
+        exact = [loss64(rc.recompute_forward_reference(
+            (v0.double() + s * eps64 * u.double())[tris], tid, parity, origin,
+            dx, upper)) for s in (1.0, -1.0)]
+    (g_all,) = torch.autograd.grad(model.loss(v, target), v)
+    fd = {"frozen": (frozen[0] - frozen[1]) / (2 * eps),
+          "float64": (exact[0] - exact[1]) / (2 * eps64),
+          "full": (full[0] - full[1]) / (2 * eps)}
+    ref = {"frozen": gnorm, "float64": gnorm,
+           "full": float((g_all.double() * u.double()).sum())}
+    rel = {k: abs(fd[k] - ref[k]) / abs(ref[k]) for k in fd}
+    print(f"{label} finite difference along g/|g| (step {eps:.2e}, cells "
+          f"with |phi| > {2 * step:.2e}: {int(mask.sum())} of {n}): <g,u> "
+          f"{gnorm:.6e}, ids frozen {fd['frozen']:.6e} (rel "
+          f"{rel['frozen']:.2e}), in float64 through the twin "
+          f"{fd['float64']:.6e} (rel {rel['float64']:.2e}); all cells through "
+          f"the full forward {fd['full']:.6e} vs {ref['full']:.6e} (rel "
+          f"{rel['full']:.2e})", flush=True)
+    if not (rel["frozen"] < 1e-3 and rel["float64"] < 1e-4):
+        raise AssertionError(f"{label}: finite difference off by {rel}")
+    return dict(loss=loss, launches=launches, r1_err=r1_err,
+                r1b_err=r1b_err, r1b_rel=r1b_err / scale, fd_rel=rel,
+                bin_s=bin_s, model=model, v0=v0, target=target, tv=tv,
+                tid=tid, parity=parity, gphi=gphi,
+                args=(origin, dx, upper))
+
+
+def time_differentiable(torch, r, card, label):
+    """Forward and forward+backward of one step, each beside the same path
+    with R1 / R1b swapped for their twins; R1 and R1b alone beside theirs."""
+    from sdfgenfast_tpu_torch.ops import recompute as rc
+
+    model, v0, target = r["model"], r["v0"], r["target"]
+    tv, tid, parity, gphi = r["tv"], r["tid"], r["parity"], r["gphi"]
+    origin, dx, upper = r["args"]
+
+    def fwd():
+        with torch.no_grad():
+            model.forward(v0)
+
+    def step():
+        model.train_step(v0, target, lr=1e-2)
+
+    kernels = (rc.recompute_forward, rc.recompute_backward)
+
+    def as_twins():
+        rc.recompute_forward = rc.recompute_forward_reference
+        rc.recompute_backward = rc.recompute_backward_reference
+
+    times = {}
+    for key, fn in (("forward", fwd), ("step", step)):
+        times[key] = cuda_ms(torch, fn, 5)
+        as_twins()
+        try:
+            times[key + "_twin"] = cuda_ms(torch, fn, 2)
+        finally:
+            rc.recompute_forward, rc.recompute_backward = kernels
+    times["r1"] = cuda_ms(torch, lambda: rc.recompute_forward(
+        tv, tid, parity, origin, dx, upper), 10)
+    times["r1_twin"] = cuda_ms(torch, lambda: rc.recompute_forward_reference(
+        tv, tid, parity, origin, dx, upper), 2)
+    times["r1b"] = cuda_ms(torch, lambda: rc.recompute_backward(
+        tv, tid, parity, gphi, origin, dx, upper), 10)
+    times["r1b_twin"] = cuda_ms(torch, lambda: rc.recompute_backward_reference(
+        tv, tid, parity, gphi, origin, dx, upper), 2)
+    print(f"[{card}] {label} differentiable step: forward {times['forward']:.3f}"
+          f" ms (twin R1 {times['forward_twin']:.3f} ms), forward+backward "
+          f"{times['step']:.3f} ms (twin R1/R1b {times['step_twin']:.3f} ms); "
+          f"R1 {times['r1']:.3f} ms (twin {times['r1_twin']:.3f}), R1b "
+          f"{times['r1b']:.3f} ms (twin {times['r1b_twin']:.3f})", flush=True)
+    return times
+
+
 def main():
     import torch
 
@@ -503,7 +823,8 @@ def main():
     from sdfgenfast_tpu_torch.io import native
     from sdfgenfast_tpu_torch.kernels import build
     from sdfgenfast_tpu_torch.mesh import Mesh, box_mesh, torus_mesh
-    from sdfgenfast_tpu_torch.ops import band_kernel, dense, vdt_kernel
+    from sdfgenfast_tpu_torch.ops import band_kernel, dense, recompute, vdt_kernel
+    from sdfgenfast_tpu_torch.tools import micro_bench as mb
     from sdfgenfast_tpu_torch.pipeline import bin_mesh, make_level_set3
 
     # -- 1. the card ---------------------------------------------------------
@@ -557,6 +878,7 @@ def main():
     k2_err, k2_ms, k2_plain = check_k2(torch, device, *grids[256])
     k3_err, k3_ms, k3_plain = check_k3(torch, device, grids[256][1].shape)
     k4_err, k4_ms, k4_plain = check_k4(torch, device, grids[256][1].shape)
+    probe_err = check_probes(torch, device)
 
     # -- 4a. the binned path against the reference binary's goldens --------
     band_kernel.band_rows.launches = 0
@@ -624,13 +946,54 @@ def main():
     print(f"generate_sdf_batch [box36, torus1024, sphere82k] at {bgrid.shape}:"
           f" equal to single calls; launches K2/K3/K4/K1/K1b {batch_launches}",
           flush=True)
-    for name, count in list(launches.items()) + list(zip(
-            ("batch K2", "batch K3", "batch K4", "batch K1", "batch K1b"),
-            batch_launches)):
+    # -- 4c. the probe tool's entry point ------------------------------------
+    probes = (mb.vpu_peak, mb.vpu_mixed, mb.grid_overhead, mb.hbm_stream)
+    for fn in probes:
+        fn.launches = 0
+    probe_res = mb.run(device)
+    probe_launches = {fn.__name__: fn.launches for fn in probes}
+    print(f"probe tool launches: {probe_launches}", flush=True)
+    counts = sass_counts(lib_path)
+    if counts is None:
+        print("cuobjdump not found: SASS counts not taken", flush=True)
+    else:
+        for name, c in sorted(counts.items()):
+            print(f"  SASS {name}: FFMA {c['FFMA']}, FMUL {c['FMUL']}, "
+                  f"FADD {c['FADD']}", flush=True)
+
+    # -- 4d. the differentiable path: SDFGenerator.train_step, both halves --
+    diff_counters = (band_kernel.band_rows, vdt_kernel.round_phase,
+                     vdt_kernel.chamfer, dense.dense_sep,
+                     recompute.recompute_forward, recompute.recompute_backward)
+    diff = {
+        "sphere82k": differentiable_half(torch, device, "sphere82k 256^3",
+                                         *grids[256], diff_counters),
+        "box36": differentiable_half(torch, device, "box36 256x341x425", box,
+                                     box_grid, diff_counters),
+    }
+    for label, r in diff.items():
+        print(f"differentiable {label}: loss {r['loss']:.6e}, launches "
+              f"{r['launches']}, SDFGenerator binning {r['bin_s']:.3f} s",
+              flush=True)
+    need = {"sphere82k": ("band_rows", "round_phase", "chamfer",
+                          "recompute_forward", "recompute_backward"),
+            "box36": ("dense_sep", "recompute_forward", "recompute_backward")}
+    checks = list(launches.items()) + list(zip(
+        ("batch K2", "batch K3", "batch K4", "batch K1", "batch K1b"),
+        batch_launches)) + list(probe_launches.items()) + [
+        (f"{label} {k}", diff[label]["launches"][k])
+        for label, keys in need.items() for k in keys]
+    for name, count in checks:
         if count <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
 
     # -- 5. timings ---------------------------------------------------------
+    diff_times = {label: time_differentiable(torch, r, card, label)
+                  for label, r in diff.items()}
+    # keep the numbers only: the breakdowns below read peak device memory
+    diff = {label: {k: r[k] for k in ("launches", "r1_err", "r1b_err")}
+            for label, r in diff.items()}
+    torch.cuda.empty_cache()
     for n, r in results.items():
         walls = []
         for _ in range(WARM_CALLS):
@@ -701,7 +1064,23 @@ def main():
             ("K4 chamfer (2 passes)", "256^3", k4_ms, k4_plain)):
         print(f"[{card}] {name} at {shape}: kernel {ms:.3f} ms, "
               f"plain torch {plain:.3f} ms", flush=True)
+    grid_res = {g["rows"]: g for g in probe_res["grid_overhead"]}
+    probe_ms = {"vpu_peak": probe_res["vpu_peak"]["ms"],
+                "vpu_peak_fma": probe_res["vpu_peak_fma"]["ms"],
+                "vpu_mixed": probe_res["vpu_mixed"]["ms"],
+                "grid_overhead_b128": grid_res[128]["ms"],
+                "grid_overhead_b1024": grid_res[1024]["ms"],
+                "hbm_stream": probe_res["hbm_stream"]["ms"]}
+    for name, ms in probe_ms.items():
+        print(f"[{card}] probe {name}: kernel {ms:.3f} ms, plain torch "
+              f"{probe_err[name][1]:.3f} ms", flush=True)
 
+    probe_rows = (("vpu_peak", "vpu_peak", 62), ("vpu_peak_fma", "vpu_peak", 62),
+                  ("vpu_mixed", "vpu_mixed", 93),
+                  ("grid_overhead_b128", "grid_overhead", 129),
+                  ("grid_overhead_b1024", "grid_overhead", 129),
+                  ("hbm_stream", "hbm_stream", 150))
+    sphere = diff["sphere82k"]
     kernels = [
         {"name": "dense_sep", "route": "cuda",
          "source": "sdfgenfast_tpu_torch/csrc/dense.cu",
@@ -728,6 +1107,30 @@ def main():
          "replaces": "sdfgenfast_tpu/ops/vdt_pallas.py:272",
          "launches": launches["chamfer"], "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/probes.cu",
+         "replaces": f"tools/micro_bench.py:{line}",
+         "launches": probe_launches[wrapper],
+         "max_abs_err": probe_err[name][0], "ms": probe_ms[name],
+         "plain_ms": probe_err[name][1]}
+        for name, wrapper, line in probe_rows
+    ] + [
+        # no Pallas counterpart: the JAX package differentiates jnp code
+        {"name": "recompute_phi", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/recompute.cu",
+         "replaces": "sdfgenfast_tpu/pipeline.py:341",
+         "launches": sphere["launches"]["recompute_forward"],
+         "max_abs_err": sphere["r1_err"],
+         "ms": diff_times["sphere82k"]["r1"],
+         "plain_ms": diff_times["sphere82k"]["r1_twin"]},
+        {"name": "recompute_vjp", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/recompute.cu",
+         "replaces": "sdfgenfast_tpu/pipeline.py:341",
+         "launches": sphere["launches"]["recompute_backward"],
+         "max_abs_err": sphere["r1b_err"],
+         "ms": diff_times["sphere82k"]["r1b"],
+         "plain_ms": diff_times["sphere82k"]["r1b_twin"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -10,9 +10,12 @@ reference it is tested against; this package imports neither it nor JAX.
 
 Public surface, as the reference's ``sdfgen`` package: ``load_mesh,
 generate_sdf, save_sdf, load_sdf, is_gpu_available, generate_from_mesh,
-generate_from_file``, plus ``generate_sdf_batch``,
-``pipeline.make_level_set3`` and the CLI (``python -m
-sdfgenfast_tpu_torch.cli``, the ``sdfgen-torch`` script).
+generate_from_file``, plus ``generate_sdf_batch``, the differentiable
+pipeline (``pipeline.make_level_set3(..., verts=...)``, vertex gradients
+through the recompute kernels R1/R1b), the trainable generator
+``models.SDFGenerator`` and the CLI (``python -m sdfgenfast_tpu_torch.cli``,
+the ``sdfgen-torch`` script). ``tools.micro_bench`` probes the card's
+ceilings (kernels P1-P4).
 """
 
 __version__ = "0.1.0"

@@ -16,8 +16,8 @@
 // K1 keeps the Pallas kernel's grouping of every affine form exactly:
 // cf(27)*x + (cf(28)*y + cf(30)) plus cf(29)*z, and the same for the
 // barycentric weights and the three edge parameters. K1b keeps the operation
-// order of geometry.point_triangle_distance_sq_soa. Built with --fmad=false,
-// so both match their PyTorch twins step for step.
+// order of geometry.point_triangle_distance_sq_soa (geometry.cuh). Built
+// with --fmad=false, so both match their PyTorch twins step for step.
 //
 // The plane-bound cull: |h| bounds the distance to a triangle from below, so
 // K1 skips a triangle for a whole warp when every lane's h^2 exceeds its own
@@ -35,16 +35,13 @@
 
 #include <cuda_runtime.h>
 
+#include "geometry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kNumCoef = 40;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float d3(float ux, float uy, float uz, float vx,
-                                    float vy, float vz) {
-  return ux * vx + uy * vy + uz * vz;
-}
 
 // Grid-local position of linear cell n (k fastest): f32(index + offset) * dx.
 __device__ __forceinline__ void cell_position(long long n, int nj, int nk,
@@ -131,51 +128,6 @@ dense_sep_kernel(const float* __restrict__ coef, int m, int ni, int nj,
       tid[n] = best_t;
     }
   }
-}
-
-// geometry.point_triangle_distance_sq_soa's segment term.
-__device__ __forceinline__ float seg_d2(float px, float py, float pz,
-                                        float x1x, float x1y, float x1z,
-                                        float x2x, float x2y, float x2z) {
-  const float dvx = x2x - x1x, dvy = x2y - x1y, dvz = x2z - x1z;
-  const float m2 = d3(dvx, dvy, dvz, dvx, dvy, dvz);
-  float t = d3(x2x - px, x2y - py, x2z - pz, dvx, dvy, dvz) / fmaxf(m2, 1e-30f);
-  t = fminf(fmaxf(t, 0.0f), 1.0f);
-  const float ddx = px - (t * x1x + (1.0f - t) * x2x);
-  const float ddy = py - (t * x1y + (1.0f - t) * x2y);
-  const float ddz = pz - (t * x1z + (1.0f - t) * x2z);
-  return d3(ddx, ddy, ddz, ddx, ddy, ddz);
-}
-
-// geometry.point_triangle_distance_sq_soa, operation for operation.
-__device__ __forceinline__ float point_triangle_d2(
-    float px, float py, float pz, float ax, float ay, float az, float bx,
-    float by, float bz, float cx, float cy, float cz) {
-  const float x13x = ax - cx, x13y = ay - cy, x13z = az - cz;
-  const float x23x = bx - cx, x23y = by - cy, x23z = bz - cz;
-  const float x03x = px - cx, x03y = py - cy, x03z = pz - cz;
-  const float m13 = d3(x13x, x13y, x13z, x13x, x13y, x13z);
-  const float m23 = d3(x23x, x23y, x23z, x23x, x23y, x23z);
-  const float d = d3(x13x, x13y, x13z, x23x, x23y, x23z);
-  const float invdet = 1.0f / fmaxf(m13 * m23 - d * d, 1e-30f);
-  const float pa = d3(x13x, x13y, x13z, x03x, x03y, x03z);
-  const float pb = d3(x23x, x23y, x23z, x03x, x03y, x03z);
-  const float w23 = invdet * (m23 * pa - d * pb);
-  const float w31 = invdet * (m13 * pb - d * pa);
-  const float w12 = 1.0f - w23 - w31;
-  const bool inside = (w23 >= 0.0f) && (w31 >= 0.0f) && (w12 >= 0.0f);
-  const float ex = px - (w23 * ax + w31 * bx + w12 * cx);
-  const float ey = py - (w23 * ay + w31 * by + w12 * cy);
-  const float ez = pz - (w23 * az + w31 * bz + w12 * cz);
-  const float din = d3(ex, ey, ez, ex, ey, ez);
-
-  const float d12 = seg_d2(px, py, pz, ax, ay, az, bx, by, bz);
-  const float d13 = seg_d2(px, py, pz, ax, ay, az, cx, cy, cz);
-  const float d23 = seg_d2(px, py, pz, bx, by, bz, cx, cy, cz);
-  const float d_edge = w23 > 0.0f   ? fminf(d12, d13)
-                       : w31 > 0.0f ? fminf(d12, d23)
-                                    : fminf(d13, d23);
-  return inside ? din : d_edge;
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -1,8 +1,8 @@
 """Build and load the package's hand-written CUDA kernels.
 
-The sources are ``sdfgenfast_tpu_torch/csrc/*.cu``, each a kernel plus a
-plain C entry point that launches it on a given stream and returns
-``cudaGetLastError()``. Each source is compiled by its own ``nvcc`` process,
+The sources are ``sdfgenfast_tpu_torch/csrc/*.cu`` (sharing device code
+through ``csrc/*.cuh``), each a kernel plus a plain C entry point that
+launches it on a given stream and returns ``cudaGetLastError()``. Each source is compiled by its own ``nvcc`` process,
 all started together, for Hopper (``sm_90a``); the objects are linked into
 one shared library loaded through ``ctypes``. Nothing includes PyTorch's
 headers, so a build takes seconds.
@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as void*)
 _SIGNATURES = {
@@ -47,6 +48,13 @@ _SIGNATURES = {
     "sdf_chamfer_pass": [_P, _P, _I, _I, _I, _F, _F, _F, _P],
     "sdf_dense_sep": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "sdf_dense_soa": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    "sdf_recompute_phi": [_P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _F, _P, _P],
+    "sdf_recompute_vjp": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _P,
+                          _P],
+    "sdf_probe_vpu_peak": [_P, _P, _L, _I, _I, _P],
+    "sdf_probe_vpu_mixed": [_P, _P, _L, _I, _P],
+    "sdf_probe_scale2": [_P, _P, _I, _I, _P],
+    "sdf_probe_add1": [_P, _P, _L, _P],
 }
 
 _lock = threading.Lock()
@@ -59,6 +67,10 @@ class KernelBuildError(RuntimeError):
 
 def sources():
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def headers():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -75,7 +87,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode())
             h.update(fh.read())

@@ -60,9 +60,9 @@ def sqrt_f32(x):
     torch.sqrt goes through MKL's vector math, which is not correctly
     rounded (and which values it misrounds depends on how the op is split
     over threads); a float64 sqrt rounded to float32 is. CUDA's sqrtf is
-    IEEE already."""
+    IEEE already. A float64 tensor keeps its float64 sqrt."""
     if x.device.type == "cpu":
-        return torch.sqrt(x.double()).to(torch.float32)
+        return torch.sqrt(x.double()).to(x.dtype)
     return torch.sqrt(x)
 
 

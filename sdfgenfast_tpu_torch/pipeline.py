@@ -21,13 +21,18 @@ Binned exact path (:func:`exact_core`):
      K3, run in the JAX package's axis permutation;
   4. device: K4 chamfer relaxation, then the sign from the parity.
 
+Vertex gradients (``make_level_set3(..., verts=...)``): either path runs
+without gradients and keeps only the closest-triangle ids; phi is then
+evaluated again from the vertices by the recompute kernels R1/R1b
+(``ops/recompute.py``).
+
 Every step takes an explicit ``torch.device``. CUDA tensors go through the
 hand-written kernels; CPU tensors through their plain-torch twins.
 
 Not ported yet (each raises ``NotImplementedError``): ``sign_mode="device"``,
-``far_field`` other than ``"exact"``, the flat or capped jump-flood ladder
-(``vdt_max_hop`` / ``vdt_extra_rounds``) and band tile shapes other than 8^3
-on the binned path, and vertex gradients.
+``far_field`` other than ``"exact"``, and the flat or capped jump-flood
+ladder (``vdt_max_hop`` / ``vdt_extra_rounds``) and band tile shapes other
+than 8^3 on the binned path.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from .mesh import Mesh
 from .ops import band as band_ops
 from .ops import band_kernel
 from .ops import dense as dense_ops
+from .ops import recompute as recompute_ops
 from .ops import sign_host as sign_host_ops
 from .ops import tiled as tiled_ops
 from .ops import vdt as vdt_ops
@@ -313,10 +319,19 @@ def make_level_set3(mesh: Mesh, grid: GridSpec,
                     config: SDFConfig = SDFConfig(),
                     binned: Optional[Binned] = None, *,
                     device: Union[str, torch.device],
+                    verts: Optional[torch.Tensor] = None,
                     return_tid: bool = False):
     """Signed distance field of `mesh` on `grid`, computed on `device`.
     Returns a float32 (ni, nj, nk) tensor on `device` [and the int32
-    closest-triangle ids if return_tid]."""
+    closest-triangle ids if return_tid].
+
+    `verts` ((N, 3) float32 tensor) overrides ``mesh.verts`` to obtain
+    gradients; the binning is reused (valid while the vertices stay within
+    their cells). The dense or binned pipeline then runs without gradients
+    and keeps only the closest-triangle ids, and phi is evaluated again from
+    ``verts[tris]`` by ``ops.recompute.recompute_stage`` (kernels R1/R1b),
+    so the gradient reaches `verts`. On the binned path this phi is the
+    exact distance to each cell's triangle, tighter than the pyramid's."""
     if mesh.is_empty:
         raise ValueError(
             "Cannot generate SDF from empty mesh (vertices or triangles are empty)"
@@ -329,24 +344,37 @@ def make_level_set3(mesh: Mesh, grid: GridSpec,
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    parity = (binned.parity_packed if binned.parity_packed is not None
-              else binned.parity_crossings)
+    if verts is None:
+        v = dev(mesh.verts)
+    else:
+        v = torch.as_tensor(verts, dtype=torch.float32, device=device)
+        if tuple(v.shape) != tuple(mesh.verts.shape):
+            raise ValueError(f"verts must have shape {mesh.verts.shape}, got "
+                             f"{tuple(v.shape)}")
+    parity = dev(binned.parity_packed if binned.parity_packed is not None
+                 else binned.parity_crossings)
+    tris = dev(binned.tris)
     dx = float(np.float32(grid.dx))
     origin = dev(np.asarray(grid.origin, np.float32))
-    if use_dense(config, len(mesh.tris)):
-        phi, tid = dense_sign_core(dev(mesh.verts), dev(binned.tris),
-                                   dev(parity), origin, dx,
-                                   grid_shape=grid.shape)
-        return (phi, tid) if return_tid else phi
-    csr = binned.band_csr
-    if csr is None:
-        raise ValueError("this Binned holds no band binning (it was made for "
-                         "the dense path); bin the mesh with this config")
-    phi, tid = exact_core(
-        dev(mesh.verts), dev(binned.tris), dev(csr["ids"]), dev(csr["pair"]),
-        dev(csr["off"]), dev(csr["cnt"]), dev(parity), origin, dx,
-        grid_shape=grid.shape, tiles_dim=binned.tiles_dim,
-        # the freeze threshold is capped by the band actually binned with
-        seed_band=min(max(config.exact_band, 3), binned.seed_band),
-        chamfer_passes=config.chamfer_passes)
+    with torch.no_grad():
+        if use_dense(config, len(mesh.tris)):
+            phi, tid = dense_sign_core(v.detach(), tris, parity, origin, dx,
+                                       grid_shape=grid.shape)
+        else:
+            csr = binned.band_csr
+            if csr is None:
+                raise ValueError(
+                    "this Binned holds no band binning (it was made for the "
+                    "dense path); bin the mesh with this config")
+            phi, tid = exact_core(
+                v.detach(), tris, dev(csr["ids"]), dev(csr["pair"]),
+                dev(csr["off"]), dev(csr["cnt"]), parity, origin, dx,
+                grid_shape=grid.shape, tiles_dim=binned.tiles_dim,
+                # the freeze threshold is capped by the band binned with
+                seed_band=min(max(config.exact_band, 3), binned.seed_band),
+                chamfer_passes=config.chamfer_passes)
+    if verts is not None:
+        phi = recompute_ops.recompute_stage(
+            v[tris.long()], tid, _parity_device(parity, grid.shape[0]),
+            np.asarray(grid.origin, np.float32), dx)
     return (phi, tid) if return_tid else phi
