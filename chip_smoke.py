@@ -8,8 +8,8 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
   2. build the CUDA kernels (nvcc, one process per source) and the native
      host library (make);
   3. each kernel against its plain-torch twin on the card, at the shapes the
-     main path gives it (K1 dense separable, K1b dense SoA, K2 band rows, K3
-     jump-flood round, K4 chamfer, the probes P1-P4; R1/R1b in phase 4d);
+     main path gives it (K1 dense separable, K1b dense streamed, K2 band
+     rows, K3 jump-flood round, K4 chamfer, the probes P1-P4; R1/R1b in phase 4d);
   4. the main path, both halves. Binned: ``generate_from_file`` on the
      81,920-triangle sphere at 256^3 and 512^3, held against the reference
      binary's sparse goldens (bars of tests/test_parity_golden.py). Dense:
@@ -72,6 +72,23 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(torch, fn, reps):
+    """Mean device time of fn() over `reps` back-to-back calls: the calls are
+    queued behind a ~1 ms spin of the card, so the host's launch overhead
+    (larger than a small round's kernel) does not leave gaps between them."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bits(torch, x):
     return x.contiguous().view(torch.int32)
 
@@ -82,23 +99,59 @@ def abs_err(got, want):
 
 
 def seeded_state(torch, shape, dx, seed, device, n_seed=20000):
-    """A (5, ni, nj, nk) VDT state: FAR everywhere except `n_seed` random
-    cells holding a closest point near the cell, a random id and its d2."""
+    """A (5, ni, nj, nk) VDT state on `device`: FAR everywhere except
+    `n_seed` random cells holding a closest point near the cell, a random id
+    and its d2."""
     from sdfgenfast_tpu_torch.ops import vdt
 
     rng = np.random.default_rng(seed)
     ni, nj, nk = shape
-    state = np.full((5, ni, nj, nk), vdt.FAR, np.float32)
-    ii, jj, kk = (rng.integers(0, n, n_seed) for n in shape)
+    st = torch.full((5, ni, nj, nk), float(vdt.FAR), dtype=torch.float32,
+                    device=device)
+    ii, jj, kk = (torch.from_numpy(rng.integers(0, n, n_seed)).to(device)
+                  for n in shape)
     cp = (rng.normal(size=(3, n_seed)).astype(np.float32) * 0.3
-          + np.stack([ii, jj, kk]).astype(np.float32) * np.float32(dx))
-    state[0, ii, jj, kk], state[1, ii, jj, kk], state[2, ii, jj, kk] = cp
-    state[3, ii, jj, kk] = rng.integers(0, 1 << 24, n_seed).astype(
-        np.int32).view(np.float32)
-    st = torch.from_numpy(state).to(device)
+          + np.stack([a.cpu().numpy() for a in (ii, jj, kk)]).astype(
+              np.float32) * np.float32(dx))
+    for c in range(3):
+        st[c, ii, jj, kk] = torch.from_numpy(cp[c]).to(device)
+    st[3, ii, jj, kk] = torch.from_numpy(rng.integers(
+        0, 1 << 24, n_seed).astype(np.int32).view(np.float32)).to(device)
     px, py, pz = vdt._level_pos_axes(shape, dx, 1, device)
     st[4] = vdt._dist2(px, py, pz, st[0], st[1], st[2])
     return st
+
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, at the 700 W limit) for
+# the bounds: FP32 outside the tensor cores and HBM3.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations per unit of work, by count of each kernel's formula: a
+# (cell, triangle) pair of the separable dense distance, a (cell,
+# candidate) pair of the band kernel, a donor of a jump-flood round (3
+# subtractions, 3 products, 2 sums, 1 compare), an offset of a chamfer pass
+# (1 add, 1 min), a cell of R1 and of R1b.
+OPS_DENSE_PAIR = 45
+OPS_BAND_PAIR = 90
+OPS_VDT_DONOR = 9
+OPS_CHAMFER_OFFSET = 2
+OPS_R1_CELL = 110
+OPS_R1B_CELL = 330
+
+
+def bound_ms(ops, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    `ops` FP32 operations and `nbytes` of device-memory traffic."""
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k3_bound(shape):
+    """K3's bound for one round: each cell's 20 B read once and written once,
+    26 donors of arithmetic."""
+    cells = int(np.prod(shape))
+    return bound_ms(cells * 26 * OPS_VDT_DONOR, cells * 40)
 
 
 def check_k2(torch, device, mesh, grid):
@@ -147,15 +200,26 @@ def check_k2(torch, device, mesh, grid):
           f"max|err| {err:.3e}", flush=True)
     ms = cuda_ms(torch, lambda: band_kernel.band_rows(*args, **kw), 10)
     plain = cuda_ms(torch, lambda: band_kernel.band_rows_reference(*args, **kw), 2)
-    return err, ms, plain
+    # the bound: every (cell, real candidate) pair of the active tiles; the
+    # vertex table, the CSR arrays and the five output rows of each tile
+    ids, off, cnt, pair = (csr[k] for k in ("ids", "off", "cnt", "pair"))
+    real = sum(int((pair[o:o + c] < len(binned.tris)).sum())
+               for t, o, c in zip(ids, off, cnt) if t < T)
+    bound = bound_ms(real * 512 * OPS_BAND_PAIR,
+                     36 * len(binned.tris) + 4 * len(pair) + 12 * len(ids)
+                     + 20 * 512 * len(rows))
+    return err, ms, plain, bound
 
 
-def check_k3(torch, device, full_shape,
-             shapes=((128, 128, 128), (48, 41, 75))):
+K3_STRIDES = (1, 2, 3, 4, 8, 16, 32, 64)
+
+
+def check_k3(torch, device, shapes=((128, 128, 128), (48, 41, 75),
+                                     (37, 29, 70), (130, 5, 66))):
     """K3 vs its twin: bit-equal on all five channels for every stride
-    and scale, at >= 128^3 and a ragged shape. Returns (max_abs_err, ms,
-    plain_ms): the error over the float channels, and the times of one
-    stride-1 round at the main path's full level."""
+    (64 takes the three-run halo in k) and scale, at >= 128^3 and shapes
+    that end mid-tile on every axis, and over a multi-round phase. Returns
+    the largest error over the float channels (0 when bit-equal)."""
     from sdfgenfast_tpu_torch.ops import vdt_kernel
 
     dx = float(np.float32(0.02))
@@ -164,7 +228,7 @@ def check_k3(torch, device, full_shape,
     for shape in shapes:
         st = seeded_state(torch, shape, dx, sum(shape), device)
         for scale in (1, 2, 4):
-            for stride in (1, 2, 4, 8, 16, 32):
+            for stride in K3_STRIDES:
                 got = vdt_kernel.round_phase(st, dx, (stride,), scale)
                 want = vdt_kernel.round_phase_reference(st, dx, (stride,),
                                                         scale)
@@ -181,13 +245,75 @@ def check_k3(torch, device, full_shape,
         if not torch.equal(bits(torch, got), bits(torch, want)):
             raise AssertionError(f"K3 {shape}: multi-round phase differs")
         err = max(err, abs_err(got[floats], want[floats]))
-    print(f"K3 round_phase vs twin: {n} single rounds + 2 phases bit-equal",
-          flush=True)
-    st = seeded_state(torch, full_shape, dx, 1, device, n_seed=400000)
-    ms = cuda_ms(torch, lambda: vdt_kernel.round_phase(st, dx, (1,), 1), 10)
-    plain = cuda_ms(
-        torch, lambda: vdt_kernel.round_phase_reference(st, dx, (1,), 1), 3)
-    return err, ms, plain
+    print(f"K3 round_phase vs twin: {n} single rounds (strides {K3_STRIDES}, "
+          f"scales 1, 2, 4, shapes {shapes}) + {len(shapes)} phases "
+          f"bit-equal", flush=True)
+    return err
+
+
+def time_k3(torch, device, card, shape, plain=False):
+    """K3's time per stride on a seeded state of `shape`, beside its bound.
+    Returns {stride: ms} (and the twin's stride-1 time when `plain`)."""
+    from sdfgenfast_tpu_torch.ops import vdt_kernel
+
+    dx = float(np.float32(0.02))
+    st = seeded_state(torch, shape, dx, 1, device,
+                      n_seed=int(np.prod(shape)) // 40)
+    bound, by = k3_bound(shape)
+    times = {}
+    for stride in K3_STRIDES:
+        times[stride] = queued_ms(
+            torch, lambda: vdt_kernel.round_phase(st, dx, (stride,), 1), 10)
+        print(f"[{card}] K3 round {shape} stride {stride}: "
+              f"{times[stride]:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{bound / times[stride]:.1%} of the bound", flush=True)
+    if plain:
+        times["plain"] = cuda_ms(torch, lambda: vdt_kernel.round_phase_reference(
+            st, dx, (1,), 1), 3)
+    return times
+
+
+def k3_call_time(torch, device, card, mesh_path, nx):
+    """The summed K3 device time of one generate_from_file call: every phase
+    the pyramid runs is recorded, then each of its rounds is replayed alone
+    on the round's own input and timed (queued_ms). Returns (ms, launches,
+    per-level list)."""
+    from sdfgenfast_tpu_torch import generate_from_file
+    from sdfgenfast_tpu_torch.ops import vdt_kernel
+
+    real = vdt_kernel.round_phase
+    phases = []
+
+    def record(state, dx, strides, scale=1):
+        phases.append((state.clone(), dx, tuple(strides), scale))
+        return real(state, dx, strides, scale)
+
+    # round_phase counts on the module's name, which is `record` meanwhile
+    record.launches = real.launches
+    vdt_kernel.round_phase = record
+    try:
+        generate_from_file(mesh_path, nx=nx, device=device)
+    finally:
+        vdt_kernel.round_phase = real
+        real.launches = record.launches
+    total, launches, levels = 0.0, 0, []
+    for state, dx, strides, scale in phases:
+        ms = []
+        for stride in strides:
+            ms.append(queued_ms(
+                torch, lambda: real(state, dx, (stride,), scale), 10))
+            state = real(state, dx, (stride,), scale)
+        levels.append((tuple(state.shape[1:]), strides, ms))
+        total += sum(ms)
+        launches += len(strides)
+    del phases
+    for shape, strides, ms in levels:
+        print(f"[{card}] K3 in the call, level {shape}: strides {strides}, "
+              + ", ".join(f"{t:.4f}" for t in ms) + f" ms (sum "
+              f"{sum(ms):.4f})", flush=True)
+    print(f"[{card}] K3 summed over one call ({launches} launches): "
+          f"{total:.4f} ms", flush=True)
+    return total, launches, levels
 
 
 def check_k4(torch, device, full_shape,
@@ -313,23 +439,32 @@ def check_k1(torch, device, box, box_grid):
 
 
 def check_k1b(torch, device, torus, torus_grid):
-    """K1b vs its twin: the 1024-triangle torus on its 256-class grid and on
-    a ragged grid with an index offset. Returns (max_abs_err, ms, plain_ms)
-    at the 256-class grid."""
+    """K1b (dense_stream) vs its twin dense_sep_reference: the 1024-triangle
+    torus on its 256-class grid and on a ragged grid with an index offset,
+    and M = 385 (three full chunks and a one-triangle one) with an index
+    offset. Returns (max_abs_err, ms, plain_ms) at the 256-class grid."""
+    from sdfgenfast_tpu_torch.mesh import Mesh, icosphere
     from sdfgenfast_tpu_torch.ops import dense
+
+    def case(label, tris, dx, shape, off=(0, 0, 0)):
+        table = dense._sep_coefs(tris).contiguous()
+        return check_dense(torch, device, label, dense.dense_stream,
+                           dense.dense_sep_reference, table, tris, dx, shape,
+                           off), table
 
     dx = float(np.float32(torus_grid.dx))
     tris = tri_local(torch, device, torus, torus_grid.origin)
-    table = tris.reshape(-1, 9).T.contiguous()
-    err = check_dense(torch, device, "K1b torus1024", dense.dense_soa,
-                      dense.dense_soa_reference, table, tris, dx,
-                      torus_grid.shape)
-    err = max(err, check_dense(torch, device, "K1b torus1024 ragged",
-                               dense.dense_soa, dense.dense_soa_reference,
-                               table, tris, dx, (45, 38, 29), (60, 90, 20)))
+    err, table = case("K1b torus1024", tris, dx, torus_grid.shape)
+    err = max(err, case("K1b torus1024 ragged", tris, dx, (45, 38, 29),
+                        (60, 90, 20))[0])
+    ico = icosphere(3, radius=1.0, center=(0.02, -0.01, 0.03))
+    ico = Mesh(ico.verts, ico.tris[:385])
+    err = max(err, case("K1b icosphere(3)[:385]",
+                        tri_local(torch, device, ico, (-1.2, -1.15, -1.1)),
+                        0.04, (37, 61, 45), (9, 2, 7))[0])
     kw = dict(grid_shape=torus_grid.shape)
-    ms = cuda_ms(torch, lambda: dense.dense_soa(table, dx, **kw), 10)
-    plain = cuda_ms(torch, lambda: dense.dense_soa_reference(table, dx, **kw),
+    ms = cuda_ms(torch, lambda: dense.dense_stream(table, dx, **kw), 10)
+    plain = cuda_ms(torch, lambda: dense.dense_sep_reference(table, dx, **kw),
                     2)
     return err, ms, plain
 
@@ -547,7 +682,8 @@ def check_probes(torch, device):
     whose values stay finite. Bars: P1 without FMA, P2, P3 and P4 bit for
     bit, non-finite values included; P1 with FMA within 1 ulp of the twin
     that adds in float64 and rounds once, or both non-finite. Returns
-    {name: (max_abs_err, plain_ms)}."""
+    {name: (max_abs_err, plain_ms[, library_ms])}: the library call, timed
+    for P3 and P4 only, is torch's own x * 2 and x + 1."""
     from sdfgenfast_tpu_torch.tools import micro_bench as mb
 
     rng = np.random.default_rng(3)
@@ -600,7 +736,8 @@ def check_probes(torch, device):
                 raise AssertionError(f"P3 {n_blocks} blocks: differs")
             err = max(err, finite_err(torch, got, want))
         out[f"grid_overhead_b{rows}"] = (err, cuda_ms(
-            torch, lambda: mb.grid_overhead_reference(x, n_blocks), 10))
+            torch, lambda: mb.grid_overhead_reference(x, n_blocks), 10),
+            cuda_ms(torch, lambda: torch.mul(x, 2.0), 10))
     err = 0.0
     for x in inputs(mb.HBM_SHAPE):
         got = mb.hbm_stream(x)
@@ -609,7 +746,8 @@ def check_probes(torch, device):
             raise AssertionError("P4: differs from its twin")
         err = max(err, finite_err(torch, got, want))
     out["hbm_stream"] = (err, cuda_ms(
-        torch, lambda: mb.hbm_stream_reference(x), 10))
+        torch, lambda: mb.hbm_stream_reference(x), 10),
+        cuda_ms(torch, lambda: torch.add(x, 1.0), 10))
     del x, got, want
     print("P1-P4 vs twins: P1 (both variants), P2, P3 (both block sizes) "
           "and P4 held at the tool's shapes (P1 fma within 1 ulp, the rest "
@@ -875,39 +1013,45 @@ def main():
         raise AssertionError(f"dense grids {box_grid.shape} {torus_grid.shape}")
     k1_err, k1_ms, k1_plain = check_k1(torch, device, box, box_grid)
     k1b_err, k1b_ms, k1b_plain = check_k1b(torch, device, torus, torus_grid)
-    k2_err, k2_ms, k2_plain = check_k2(torch, device, *grids[256])
-    k3_err, k3_ms, k3_plain = check_k3(torch, device, grids[256][1].shape)
+    k2_err, k2_ms, k2_plain, k2_bound = check_k2(torch, device, *grids[256])
+    k3_err = check_k3(torch, device)
     k4_err, k4_ms, k4_plain = check_k4(torch, device, grids[256][1].shape)
     probe_err = check_probes(torch, device)
 
     # -- 4a. the binned path against the reference binary's goldens --------
-    band_kernel.band_rows.launches = 0
-    vdt_kernel.round_phase.launches = 0
-    vdt_kernel.chamfer.launches = 0
+    binned_counters = (band_kernel.band_rows, vdt_kernel.round_phase,
+                       vdt_kernel.chamfer)
+    launches = {fn.__name__: 0 for fn in binned_counters}
     results = {}
     for n, (mesh_name, golden, far_key, stride) in cases.items():
         path = os.path.join(RESOURCES, mesh_name)
+        for fn in binned_counters:
+            fn.launches = 0
         t0 = time.perf_counter()
         sdf, meta = generate_from_file(path, nx=n - 2, device=device)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
+        call = {fn.__name__: fn.launches for fn in binned_counters}
         far = check_golden(sdf, os.path.join(GOLDENS, golden), far_key,
                            stride, grids[n][1])
         results[n] = {"cold_s": cold, "far_err_dx": far, "path": path}
         print(f"main path {sdf.shape}: golden bars met (0 sign mismatches, "
               f"exact band, far field {far:.4f} dx < 0.2 dx), cold call "
-              f"{cold:.3f} s", flush=True)
-    launches = {
-        "band_rows": band_kernel.band_rows.launches,
-        "round_phase": vdt_kernel.round_phase.launches,
-        "chamfer": vdt_kernel.chamfer.launches,
-    }
+              f"{cold:.3f} s, launches {call}", flush=True)
+        # the pyramid (ops/vdt.py): the coarsest level's ladder (7 rounds
+        # at 64^3, 8 at 128^3), 5 at the middle level, 7 at full resolution;
+        # 2 chamfer passes
+        rounds = {256: 19, 512: 20}[n]
+        if call != {"band_rows": 1, "round_phase": rounds, "chamfer": 2}:
+            raise AssertionError(f"sphere82k {n}^3 launches {call}")
+        for k, v in call.items():
+            launches[k] += v
     print(f"binned-path launches: {launches}", flush=True)
 
     # -- 4b. the dense path: CLI goldens, box36, torus1024, a batch ----------
     cli_goldens()
     dense.dense_sep.launches = 0
-    dense.dense_soa.launches = 0
+    dense.dense_stream.launches = 0
     t0 = time.perf_counter()
     box_phi = generate_sdf(box.verts, box.tris, box_grid.origin, box_grid.dx,
                            *box_grid.shape, device=device)
@@ -915,10 +1059,13 @@ def main():
     torus_phi, torus_meta = generate_from_mesh(torus.verts, torus.tris,
                                                nx=254, device=device)
     launches.update(dense_sep=dense.dense_sep.launches,
-                    dense_soa=dense.dense_soa.launches)
+                    dense_stream=dense.dense_stream.launches)
     print(f"dense-path launches: K1 {launches['dense_sep']}, K1b "
-          f"{launches['dense_soa']}; box36 cold call {box_cold:.3f} s",
+          f"{launches['dense_stream']}; box36 cold call {box_cold:.3f} s",
           flush=True)
+    if launches["dense_sep"] != 1 or launches["dense_stream"] != 1:
+        raise AssertionError("box36 and torus1024 take one K1 and one K1b "
+                             "launch")
     if torus_meta["dx"] != torus_grid.dx or torus_phi.shape != torus_grid.shape:
         raise AssertionError("generate_from_mesh sized the torus differently")
     check_dense_vs_binned(torch, device, "box36", box, box_grid, box_phi)
@@ -931,7 +1078,7 @@ def main():
     hi = np.max([m.bounds()[1] for m in batch], axis=0)
     bgrid = sizing_mode2a_proportional(lo, hi, 128, 1)
     counters = (band_kernel.band_rows, vdt_kernel.round_phase,
-                vdt_kernel.chamfer, dense.dense_sep, dense.dense_soa)
+                vdt_kernel.chamfer, dense.dense_sep, dense.dense_stream)
     for fn in counters:
         fn.launches = 0
     got = generate_sdf_batch([(m.verts, m.tris) for m in batch],
@@ -1056,14 +1203,60 @@ def main():
               f"{k} {statistics.median(v) * 1e3:.1f} ms"
               for k, v in stages.items())
           + f"; peak device memory {peak:.2f} GiB", flush=True)
-    for name, shape, ms, plain in (
-            ("K1 dense_sep (box36)", box_grid.shape, k1_ms, k1_plain),
-            ("K1b dense_soa (torus1024)", torus_grid.shape, k1b_ms, k1b_plain),
-            ("K2 band_rows", "256^3", k2_ms, k2_plain),
-            ("K3 round (stride 1)", "256^3", k3_ms, k3_plain),
-            ("K4 chamfer (2 passes)", "256^3", k4_ms, k4_plain)):
+    # K3 per stride at the two full-resolution sizes, and summed over one
+    # sphere82k call
+    torch.cuda.empty_cache()
+    k3_times = {n: time_k3(torch, device, card, (n, n, n), plain=n == 256)
+                for n in (256, 512)}
+    torch.cuda.empty_cache()
+    k3_call_ms, k3_call_launches, _ = k3_call_time(
+        torch, device, card, results[256]["path"], 254)
+    if k3_call_launches != 19:
+        raise AssertionError(f"K3: {k3_call_launches} rounds in one call")
+    k3_ms, k3_plain = k3_times[256][1], k3_times[256]["plain"]
+
+    # the bounds at the shapes timed (see bound_ms)
+    n_box, n_torus = int(np.prod(box_grid.shape)), int(np.prod(torus_grid.shape))
+    n_256 = int(np.prod(grids[256][1].shape))
+    m_sphere = len(grids[256][0].tris)
+    bounds = {
+        "dense_sep": bound_ms(OPS_DENSE_PAIR * n_box * len(box.tris),
+                              160 * len(box.tris) + 8 * n_box),
+        "dense_stream": bound_ms(OPS_DENSE_PAIR * n_torus * len(torus.tris),
+                                 160 * len(torus.tris) + 8 * n_torus),
+        "band_rows": k2_bound,
+        "vdt_round": k3_bound(grids[256][1].shape),
+        "chamfer": bound_ms(2 * n_256 * 26 * OPS_CHAMFER_OFFSET, 2 * 8 * n_256),
+        "recompute_phi": bound_ms(OPS_R1_CELL * n_256,
+                                  36 * m_sphere + 9 * n_256),
+        "recompute_vjp": bound_ms(OPS_R1B_CELL * n_256,
+                                  72 * m_sphere + 9 * n_256),
+    }
+    n_vpu, n_hbm = int(np.prod(mb.VPU_SHAPE)), int(np.prod(mb.HBM_SHAPE))
+    bounds.update(
+        vpu_peak=bound_ms(n_vpu * mb.PEAK_CHAIN * 4, 8 * n_vpu),
+        vpu_peak_fma=bound_ms(n_vpu * mb.PEAK_CHAIN * 4, 8 * n_vpu),
+        vpu_mixed=bound_ms(n_vpu * mb.MIXED_CHAIN * 7, 8 * n_vpu),
+        hbm_stream=bound_ms(n_hbm, 8 * n_hbm))
+    for blocks, rows in mb.GRID_CASES:
+        n = blocks * rows * mb.GRID_COLS
+        bounds[f"grid_overhead_b{rows}"] = bound_ms(n, 8 * n)
+    print(f"[{card}] K3 summed over one sphere82k 256^3 call: "
+          f"{k3_call_ms:.4f} ms (19 rounds), bound "
+          f"{7 * k3_bound((256,) * 3)[0] + 5 * k3_bound((128,) * 3)[0] + 7 * k3_bound((64,) * 3)[0]:.4f} ms",
+          flush=True)
+    for name, key, shape, ms, plain in (
+            ("K1 dense_sep (box36)", "dense_sep", box_grid.shape, k1_ms,
+             k1_plain),
+            ("K1b dense_stream (torus1024)", "dense_stream", torus_grid.shape,
+             k1b_ms, k1b_plain),
+            ("K2 band_rows", "band_rows", "256^3", k2_ms, k2_plain),
+            ("K3 round (stride 1)", "vdt_round", "256^3", k3_ms, k3_plain),
+            ("K4 chamfer (2 passes)", "chamfer", "256^3", k4_ms, k4_plain)):
+        b, by = bounds[key]
         print(f"[{card}] {name} at {shape}: kernel {ms:.3f} ms, "
-              f"plain torch {plain:.3f} ms", flush=True)
+              f"plain torch {plain:.3f} ms, bound {b:.4f} ms ({by}), "
+              f"{b / ms:.1%} of the bound", flush=True)
     grid_res = {g["rows"]: g for g in probe_res["grid_overhead"]}
     probe_ms = {"vpu_peak": probe_res["vpu_peak"]["ms"],
                 "vpu_peak_fma": probe_res["vpu_peak_fma"]["ms"],
@@ -1072,8 +1265,11 @@ def main():
                 "grid_overhead_b1024": grid_res[1024]["ms"],
                 "hbm_stream": probe_res["hbm_stream"]["ms"]}
     for name, ms in probe_ms.items():
+        lib = probe_err[name][2] if len(probe_err[name]) > 2 else None
         print(f"[{card}] probe {name}: kernel {ms:.3f} ms, plain torch "
-              f"{probe_err[name][1]:.3f} ms", flush=True)
+              f"{probe_err[name][1]:.3f} ms"
+              + (f", torch's own call {lib:.3f} ms" if lib else ""),
+              flush=True)
 
     probe_rows = (("vpu_peak", "vpu_peak", 62), ("vpu_peak_fma", "vpu_peak", 62),
                   ("vpu_mixed", "vpu_mixed", 93),
@@ -1087,10 +1283,10 @@ def main():
          "replaces": "sdfgenfast_tpu/ops/dense.py:141",
          "launches": launches["dense_sep"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "dense_soa", "route": "cuda",
+        {"name": "dense_stream", "route": "cuda",
          "source": "sdfgenfast_tpu_torch/csrc/dense.cu",
          "replaces": "sdfgenfast_tpu/ops/dense.py:254",
-         "launches": launches["dense_soa"], "max_abs_err": k1b_err,
+         "launches": launches["dense_stream"], "max_abs_err": k1b_err,
          "ms": k1b_ms, "plain_ms": k1b_plain},
         {"name": "band_rows", "route": "cuda",
          "source": "sdfgenfast_tpu_torch/csrc/band_rows.cu",
@@ -1113,7 +1309,9 @@ def main():
          "replaces": f"tools/micro_bench.py:{line}",
          "launches": probe_launches[wrapper],
          "max_abs_err": probe_err[name][0], "ms": probe_ms[name],
-         "plain_ms": probe_err[name][1]}
+         "plain_ms": probe_err[name][1],
+         "library_ms": (probe_err[name][2] if len(probe_err[name]) > 2
+                        else None)}
         for name, wrapper, line in probe_rows
     ] + [
         # no Pallas counterpart: the JAX package differentiates jnp code
@@ -1132,6 +1330,9 @@ def main():
          "ms": diff_times["sphere82k"]["r1b"],
          "plain_ms": diff_times["sphere82k"]["r1b_twin"]},
     ]
+    for row in kernels:
+        row["bound_ms"], row["bound_by"] = bounds[row["name"]]
+        row.setdefault("library_ms", None)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,41 +1,43 @@
 // K1 and K1b: the dense all-triangles distance field.
 //
-// K1 replaces sdfgenfast_tpu/ops/dense.py::_sep_kernel and K1b replaces
-// ::_dense_kernel (both launched by _dense_impl). Every cell takes the exact
+// Both evaluate the separable formulation: every affine-in-p quantity of the
+// point-triangle distance (plane distance, barycentric weights, edge
+// parameters) comes from the per-triangle (40, M) coefficient table of
+// ops/dense._sep_coefs. K1 (dense_sep_kernel, M <= 384) replaces
+// sdfgenfast_tpu/ops/dense.py::_sep_kernel; K1b (dense_stream_kernel,
+// 384 < M <= 1024) replaces ::_dense_kernel, the JAX package's per-triangle
+// fallback, with the same separable function. Every cell takes the exact
 // squared distance to every triangle, keeps the lowest id among exact ties
 // (ascending walk, strict '<'), and writes sqrt(best) and the winner id.
 //
-// Layout: one thread per cell, k fastest, so a warp covers 32 consecutive
+// K1 layout: one thread per cell, k fastest, so a warp covers 32 consecutive
 // cells of one (i, j) column and the stores coalesce. Cells are indexed with
 // 64-bit integers (512-class grids hold 134 M cells). Blocks loop over the
-// grid (grid-stride) so each block stages the triangle table in shared
-// memory once: K1's (40, M) coefficient table (61,440 B at M = 384, above the
-// 48 KB default, hence the opt-in attribute) or K1b's (9, M) vertex table.
-// Every lane of a warp reads the same table word, a shared-memory broadcast.
+// grid (grid-stride) so each block stages the (40, M) table in shared memory
+// once (61,440 B at M = 384, above the 48 KB default, hence the opt-in
+// attribute). Every lane of a warp reads the same table word, a
+// shared-memory broadcast. K1b's layout is described above its kernel.
 //
-// K1 keeps the Pallas kernel's grouping of every affine form exactly:
+// Both keep the Pallas kernel's grouping of every affine form exactly:
 // cf(27)*x + (cf(28)*y + cf(30)) plus cf(29)*z, and the same for the
-// barycentric weights and the three edge parameters. K1b keeps the operation
-// order of geometry.point_triangle_distance_sq_soa (geometry.cuh). Built
-// with --fmad=false, so both match their PyTorch twins step for step.
+// barycentric weights and the three edge parameters. Built with
+// --fmad=false, so both match dense_sep_reference step for step.
 //
 // The plane-bound cull: |h| bounds the distance to a triangle from below, so
-// K1 skips a triangle for a whole warp when every lane's h^2 exceeds its own
-// best so far (the Pallas kernel decides per block of 32 rows x nk with
+// a triangle is skipped for a whole warp when every cell's h^2 exceeds its
+// own best so far (the Pallas kernel decides per block of 32 rows x nk with
 // min(h^2) > max(best)). Degenerate triangles are never skipped. In float32
 // the edge form can land an ulp below h^2, so at near-ties a skipped
 // triangle could have won by an ulp; chip_smoke.py counts the cells where
-// the kernel and its cull-free twin differ.
+// the kernels and their cull-free twin differ.
 //
 // Bound on the H100: FP32 arithmetic. K1 costs ~45 operations per (cell,
 // triangle) pair when it is evaluated (none but the plane distance when it
-// is culled); K1b ~110. Device-memory traffic is 8 B written per cell.
+// is culled). Device-memory traffic is 8 B written per cell.
 // TPU artefacts dropped: the 32-row x nk block shape, the unroll-by-4 loop
 // and the padding of M to a multiple of 4 with far-translated triangles.
 
 #include <cuda_runtime.h>
-
-#include "geometry.cuh"
 
 namespace {
 
@@ -130,41 +132,206 @@ dense_sep_kernel(const float* __restrict__ coef, int m, int ni, int nj,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-dense_soa_kernel(const float* __restrict__ tri9, int m, int ni, int nj,
-                 int nk, int oi, int oj, int ok, float dx,
-                 float* __restrict__ phi, int* __restrict__ tid) {
-  extern __shared__ float s[];  // (9, m): a, b, c by rows
-  for (int q = threadIdx.x; q < 9 * m; q += kThreads) s[q] = tri9[q];
-  __syncthreads();
+// ---------------------------------------------------------------------------
+// K1b: the streamed, register-blocked separable kernel (384 < M <= 1024).
+//
+// The same function as dense_sep_kernel over the same (40, M) table, laid out
+// for a table that no longer fits beside several blocks in one SM's shared
+// memory (160 KB at M = 1024):
+//
+// - The table streams through shared memory in chunks of kChunk triangles,
+//   double-buffered with cp.async: chunk c + 1 is in flight while chunk c is
+//   evaluated. Each chunk is stored triangle-major (40 words per triangle),
+//   so a triangle's coefficients are ten 16-byte words read as float4
+//   broadcasts. 2 x 20 KB per block leaves room for several resident blocks.
+//   The last chunk is ragged and bounded by index: no padding triangles.
+// - Each thread owns kCells consecutive k cells of one (i, j) column. The
+//   row half of every affine form (the x and y terms, e.g.
+//   cf(27)*x + (cf(28)*y + cf(30))) and the edge offsets p.x - x2.x and
+//   p.y - x2.y are computed once per triangle and shared by the kCells
+//   cells; only the lane half (cf(29)*z) and the sums run per cell, and
+//   every shared-memory read feeds kCells cells. This is the Pallas
+//   kernel's row/lane split (sdfgenfast_tpu/ops/dense.py:163-238) carried
+//   into registers. Threads are numbered over (column, k group) pairs, so a
+//   warp covers 32 * kCells cells of one or two neighbouring columns.
+// - The plane-bound cull of dense_sep_kernel, decided per warp over its
+//   32 * kCells cells; degenerate triangles are never skipped. Cells past a
+//   column's end (and threads past the grid's end) evaluate a clamped copy
+//   of a real cell, so their votes change nothing, and are not stored.
+//
+// The arithmetic is dense_sep_kernel's, grouping for grouping, so the
+// kernel equals dense_sep_reference except where the cull decides a near-tie
+// by an ulp. Replaces sdfgenfast_tpu/ops/dense.py::_dense_kernel (the JAX
+// package's fallback for tables that did not fit the TPU's SMEM).
+// Bound on the H100: the FP32 instruction rate, ~66 instructions per
+// evaluated (cell, triangle) pair plus the row halves' ~30 per kCells cells;
+// device-memory traffic is the table once per block (from L2) and 8 B
+// written per cell.
 
-  const long long n_cells = (long long)ni * nj * nk;
-  const long long step = (long long)gridDim.x * kThreads;
-  for (long long n = (long long)blockIdx.x * kThreads + threadIdx.x;
-       n < n_cells; n += step) {
-    float x, y, z;
-    cell_position(n, nj, nk, oi, oj, ok, dx, x, y, z);
-    float best = __int_as_float(0x7f800000);  // +inf
-    int best_t = -1;
-    for (int t = 0; t < m; ++t) {
-      const float d2 = point_triangle_d2(
-          x, y, z, s[t], s[m + t], s[2 * m + t], s[3 * m + t], s[4 * m + t],
-          s[5 * m + t], s[6 * m + t], s[7 * m + t], s[8 * m + t]);
-      if (d2 < best) {
-        best = d2;
-        best_t = t;
+constexpr int kStreamThreads = 256;
+constexpr int kCells = 4;     // consecutive k cells per thread
+constexpr int kChunk = 128;   // triangles per shared-memory stage
+constexpr int kChunkWords = kChunk * kNumCoef;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Start the copies of triangles [t0, t0 + count) of the (40, m) table into
+// dst, triangle-major: dst[t * 40 + row]. Warps take rows, lanes triangles,
+// so each warp reads runs of consecutive words.
+__device__ __forceinline__ void stage_chunk(float* dst,
+                                            const float* __restrict__ coef,
+                                            int m, int t0, int count) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kNumCoef; r += kStreamThreads / 32)
+    for (int t = lane; t < count; t += 32)
+      cp_async4(dst + t * kNumCoef + r, coef + (long long)r * m + t0 + t);
+}
+
+__global__ void __launch_bounds__(kStreamThreads, 2)
+dense_stream_kernel(const float* __restrict__ coef, int m, int ni, int nj,
+                    int nk, int oi, int oj, int ok, float dx,
+                    float* __restrict__ phi, int* __restrict__ tid) {
+  __shared__ float4 stage[2][kChunkWords / 4];
+
+  const int groups = (nk + kCells - 1) / kCells;
+  const long long n_threads = (long long)ni * nj * groups;
+  long long q = (long long)blockIdx.x * kStreamThreads + threadIdx.x;
+  const bool live = q < n_threads;
+  if (!live) q = n_threads - 1;  // a copy of the last real thread
+  const long long col = q / groups;
+  const int k0 = (int)(q - col * groups) * kCells;
+  const int j = (int)(col % nj);
+  const int i = (int)(col / nj);
+  const float x = (float)(i + oi) * dx;
+  const float y = (float)(j + oj) * dx;
+  float z[kCells], best[kCells];
+  int best_t[kCells];
+#pragma unroll
+  for (int r = 0; r < kCells; ++r) {
+    z[r] = (float)(min(k0 + r, nk - 1) + ok) * dx;
+    best[r] = __int_as_float(0x7f800000);  // +inf
+    best_t[r] = -1;
+  }
+
+  const int n_chunks = (m + kChunk - 1) / kChunk;
+  if (n_chunks > 0) {
+    stage_chunk(reinterpret_cast<float*>(stage[0]), coef, m, 0,
+                min(kChunk, m));
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t0 = c * kChunk;
+    const int count = min(kChunk, m - t0);
+    if (c + 1 < n_chunks) {
+      // the other buffer was released by the barrier that ended chunk c - 1
+      stage_chunk(reinterpret_cast<float*>(stage[(c + 1) & 1]), coef, m,
+                  t0 + kChunk, min(kChunk, m - t0 - kChunk));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const float4* tab = stage[c & 1];
+    for (int tl = 0; tl < count; ++tl) {
+      const float4* g = tab + tl * (kNumCoef / 4);
+      float cf[kNumCoef];
+#define LOAD4(q)              \
+  {                           \
+    const float4 v = g[q];    \
+    cf[4 * (q)] = v.x;        \
+    cf[4 * (q) + 1] = v.y;    \
+    cf[4 * (q) + 2] = v.z;    \
+    cf[4 * (q) + 3] = v.w;    \
+  }
+      LOAD4(6) LOAD4(7) LOAD4(9)
+      const float hu = cf[27] * x + (cf[28] * y + cf[30]);
+      float din[kCells];
+      bool far = true;
+#pragma unroll
+      for (int r = 0; r < kCells; ++r) {
+        const float h = hu + cf[29] * z[r];
+        din[r] = h * h;
+        far = far && din[r] > best[r];
+      }
+      const bool degen = !(cf[39] < 0.5f);  // warp-uniform
+      if (!degen && __all_sync(kFullMask, far)) continue;
+
+      LOAD4(0) LOAD4(1) LOAD4(2) LOAD4(3) LOAD4(4) LOAD4(5) LOAD4(8)
+#undef LOAD4
+      // row halves, shared by the thread's cells
+      const float w23u = cf[31] * x + (cf[32] * y + cf[34]);
+      const float w31u = cf[35] * x + (cf[36] * y + cf[38]);
+      const float w12u = 1.0f - w23u - w31u;
+      const float su_ab = cf[15] * x + (cf[16] * y + cf[18]);
+      const float su_ac = cf[19] * x + (cf[20] * y + cf[22]);
+      const float su_bc = cf[23] * x + (cf[24] * y + cf[26]);
+      const float ubx = x - cf[0], uby = y - cf[1];
+      const float ucx = x - cf[3], ucy = y - cf[4];
+      const int t = t0 + tl;
+#pragma unroll
+      for (int r = 0; r < kCells; ++r) {
+        const float w23v = cf[33] * z[r];
+        const float w31v = cf[37] * z[r];
+        const float w12v = -(w23v + w31v);
+        const bool inside = fminf(fminf(w23u + w23v, w31u + w31v),
+                                  w12u + w12v) >= 0.0f &&
+                            !degen;
+        const float ubz = z[r] - cf[2];
+        const float ucz = z[r] - cf[5];
+        const float d_ab = edge_d2(su_ab, cf[17] * z[r], cf[6], cf[7], cf[8],
+                                   ubx, uby, ubz);
+        const float d_ac = edge_d2(su_ac, cf[21] * z[r], cf[9], cf[10],
+                                   cf[11], ucx, ucy, ucz);
+        const float d_bc = edge_d2(su_bc, cf[25] * z[r], cf[12], cf[13],
+                                   cf[14], ucx, ucy, ucz);
+        const float d2 = inside ? din[r] : fminf(d_ab, fminf(d_ac, d_bc));
+        if (d2 < best[r]) {
+          best[r] = d2;
+          best_t[r] = t;
+        }
       }
     }
-    phi[n] = sqrtf(best);
-    tid[n] = best_t;
+    __syncthreads();  // every warp is done with this buffer
+  }
+
+  if (!live) return;
+  const long long base = col * nk;
+#pragma unroll
+  for (int r = 0; r < kCells; ++r) {
+    if (k0 + r < nk) {
+      phi[base + k0 + r] = sqrtf(best[r]);
+      tid[base + k0 + r] = best_t[r];
+    }
   }
 }
 
-// Dynamic shared memory for `smem` bytes, then as many blocks as fit on the
-// card at once (capped by the cells); the kernels loop over the rest.
-template <typename Kernel>
-cudaError_t launch_shape(Kernel kernel, size_t smem, long long n_cells,
-                         int* blocks) {
+}  // namespace
+
+// K1: the whole (40, m) table in dynamic shared memory, then as many blocks
+// as fit on the card at once (capped by the cells); the kernel loops over
+// the rest.
+extern "C" int sdf_dense_sep(const float* coef, int m, int ni, int nj, int nk,
+                             int oi, int oj, int ok, float dx, float* phi,
+                             int* tid, void* stream) {
+  const long long n_cells = (long long)ni * nj * nk;
+  if (n_cells <= 0) return (int)cudaGetLastError();
+  const size_t smem = (size_t)kNumCoef * m * sizeof(float);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -175,46 +342,32 @@ cudaError_t launch_shape(Kernel kernel, size_t smem, long long n_cells,
                                  dev);
     // the card's whole opt-in size, so concurrent callers never lower it
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      err = cudaFuncSetAttribute(dense_sep_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin);
   }
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dense_sep_kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
   const long long need = (n_cells + kThreads - 1) / kThreads;
   const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  *blocks = (int)(need < fit ? need : fit);
-  return cudaSuccess;
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, int rows, const float* table, int m, int ni, int nj,
-           int nk, int oi, int oj, int ok, float dx, float* phi, int* tid,
-           void* stream) {
-  const long long n_cells = (long long)ni * nj * nk;
-  if (n_cells <= 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)rows * m * sizeof(float);
-  int blocks = 0;
-  const cudaError_t err = launch_shape(kernel, smem, n_cells, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      table, m, ni, nj, nk, oi, oj, ok, dx, phi, tid);
+  dense_sep_kernel<<<(int)(need < fit ? need : fit), kThreads, smem,
+                     (cudaStream_t)stream>>>(coef, m, ni, nj, nk, oi, oj, ok,
+                                             dx, phi, tid);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int sdf_dense_sep(const float* coef, int m, int ni, int nj, int nk,
-                             int oi, int oj, int ok, float dx, float* phi,
-                             int* tid, void* stream) {
-  return launch(dense_sep_kernel, kNumCoef, coef, m, ni, nj, nk, oi, oj, ok,
-                dx, phi, tid, stream);
-}
-
-extern "C" int sdf_dense_soa(const float* tri9, int m, int ni, int nj, int nk,
-                             int oi, int oj, int ok, float dx, float* phi,
-                             int* tid, void* stream) {
-  return launch(dense_soa_kernel, 9, tri9, m, ni, nj, nk, oi, oj, ok, dx, phi,
-                tid, stream);
+extern "C" int sdf_dense_stream(const float* coef, int m, int ni, int nj,
+                                int nk, int oi, int oj, int ok, float dx,
+                                float* phi, int* tid, void* stream) {
+  const long long groups = (nk + kCells - 1) / kCells;
+  const long long n_threads = (long long)ni * nj * groups;
+  if (n_threads > 0) {
+    const long long blocks = (n_threads + kStreamThreads - 1) / kStreamThreads;
+    dense_stream_kernel<<<(unsigned int)blocks, kStreamThreads, 0,
+                          (cudaStream_t)stream>>>(coef, m, ni, nj, nk, oi, oj,
+                                                  ok, dx, phi, tid);
+  }
+  return (int)cudaGetLastError();
 }

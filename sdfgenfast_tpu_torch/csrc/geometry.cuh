@@ -1,5 +1,5 @@
-// Point-triangle squared distance on the device, shared by K1b (dense.cu) and
-// the recompute kernels R1/R1b (recompute.cu).
+// Point-triangle squared distance on the device, for the recompute kernels
+// R1/R1b (recompute.cu).
 //
 // Operation for operation geometry.point_triangle_distance_sq_soa (the JAX
 // package's and the port's), so a kernel built with --fmad=false matches the

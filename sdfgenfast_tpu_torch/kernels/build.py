@@ -47,7 +47,7 @@ _SIGNATURES = {
     "sdf_vdt_round": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "sdf_chamfer_pass": [_P, _P, _I, _I, _I, _F, _F, _F, _P],
     "sdf_dense_sep": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
-    "sdf_dense_soa": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    "sdf_dense_stream": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "sdf_recompute_phi": [_P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _F, _P, _P],
     "sdf_recompute_vjp": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _P,
                           _P],

@@ -6,16 +6,21 @@ against every triangle: the exact unsigned distance and the lowest-id
 closest triangle of every cell, with no band binning and no far-field
 propagation.
 
-Two kernels share :func:`dense_distance_field`, with the JAX package's gate:
+Both kernels evaluate one function, the separable formulation: every
+affine-in-p quantity of the point-triangle distance (plane distance,
+barycentric weights, edge parameters) comes from a per-triangle (40, M)
+coefficient table (:func:`_sep_coefs`), grouped exactly as the Pallas
+kernel groups its row and lane halves, plus a plane-bound cull.
+:func:`dense_distance_field` picks the kernel by triangle count:
 
-1. **K1, separable** (:func:`dense_sep`, M <= ``_SEP_MAX_TRIS``): every
-   affine-in-p quantity of the point-triangle distance (plane distance,
-   barycentric weights, edge parameters) comes from a per-triangle
-   (40, M) coefficient table (:func:`_sep_coefs`), grouped exactly as the
-   Pallas kernel groups its row and lane halves, plus a plane-bound cull.
-2. **K1b, structure of arrays** (:func:`dense_soa`, M <= ``DENSE_MAX_TRIS``):
-   one triangle per step through ``geometry.point_triangle_distance_sq_soa``
-   over a (9, M) vertex table.
+1. **K1** (:func:`dense_sep`, M <= ``_SEP_MAX_TRIS``): the whole table in
+   shared memory, one thread per cell.
+2. **K1b** (:func:`dense_stream`, M <= ``DENSE_MAX_TRIS``): the table
+   streamed through shared memory in chunks, each thread owning four
+   consecutive k cells that share the row halves. The JAX package falls
+   back to its per-triangle ``_dense_kernel`` here because the table did not
+   fit the TPU's SMEM; the two agree to rtol 2e-6 / atol 1e-6, ids to ties
+   of the float64 distance.
 
 Both merge triangles in ascending id order with a strict ``<``, so ties keep
 the lowest id (cpu_lib/makelevelset3.cpp:215-218). Coordinates are
@@ -23,9 +28,9 @@ grid-local: the origin is subtracted from the triangles once, and cell
 (i, j, k) sits at ``f32(i + offset) * dx``.
 
 Each wrapper launches its CUDA kernel (``csrc/dense.cu``) for a CUDA tensor
-and runs its plain-torch twin (:func:`dense_sep_reference`,
-:func:`dense_soa_reference`) for a CPU tensor. ``dense_sep.launches`` and
-``dense_soa.launches`` count kernel launches.
+and runs the plain-torch twin :func:`dense_sep_reference` (the cull-free
+walk of the same arithmetic) for a CPU tensor. ``dense_sep.launches`` and
+``dense_stream.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -34,15 +39,14 @@ import numpy as np
 import torch
 
 from ..kernels import build
-from .geometry import point_triangle_distance_sq_soa
 from .vdt import sqrt_f32
 
 __all__ = ["DENSE_MAX_TRIS", "dense_distance_field", "dense_sep",
-           "dense_sep_reference", "dense_soa", "dense_soa_reference"]
+           "dense_sep_reference", "dense_stream"]
 
-# The JAX package's gates: the separable kernel's table at 384 triangles is
-# 60 KB, the SoA table at 1024 is 36 KB. Above DENSE_MAX_TRIS the binned
-# path wins (dense cost grows as cells x triangles).
+# The JAX package's gates. K1 holds the whole table in shared memory (60 KB
+# at 384 triangles); K1b streams it. Above DENSE_MAX_TRIS the binned path
+# wins (dense cost grows as cells x triangles).
 DENSE_MAX_TRIS = 1024
 _SEP_MAX_TRIS = 384
 _NC = 40  # rows of the separable coefficient table
@@ -166,22 +170,9 @@ def dense_sep_reference(coef, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
     return sqrt_f32(best), best_t
 
 
-def dense_soa_reference(tri9, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
-    """Plain-torch twin of :func:`dense_soa`: one triangle at a time through
-    ``point_triangle_distance_sq_soa`` over the whole grid."""
-    p = _cell_axes(grid_shape, dx, ijk_offset, tri9.device)
-    best, best_t = _init(grid_shape, tri9.device)
-    for t in range(tri9.shape[1]):
-        v = tri9[:, t]
-        d2 = point_triangle_distance_sq_soa(
-            p, (v[0], v[1], v[2]), (v[3], v[4], v[5]), (v[6], v[7], v[8]))
-        best, best_t = _merge(best, best_t, d2, t)
-    return sqrt_f32(best), best_t
-
-
-def _check_table(table, rows: int, name: str):
-    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[0] != rows:
-        raise ValueError(f"{name}: table must be ({rows}, M) float32, got "
+def _check_table(table, name: str):
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[0] != _NC:
+        raise ValueError(f"{name}: table must be ({_NC}, M) float32, got "
                          f"{tuple(table.shape)} {table.dtype}")
 
 
@@ -203,7 +194,7 @@ def _launch(entry: str, table, dx: float, grid_shape, ijk_offset):
 def dense_sep(coef, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
     """(phi, tid) over the whole grid from the (40, M) table of
     :func:`_sep_coefs`. CUDA: one K1 launch. CPU: :func:`dense_sep_reference`."""
-    _check_table(coef, _NC, "dense_sep")
+    _check_table(coef, "dense_sep")
     if coef.device.type == "cpu":
         return dense_sep_reference(coef, dx, grid_shape=grid_shape,
                                    ijk_offset=ijk_offset)
@@ -215,19 +206,20 @@ def dense_sep(coef, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
 dense_sep.launches = 0
 
 
-def dense_soa(tri9, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
-    """(phi, tid) over the whole grid from the (9, M) vertex table
-    (a, b, c by rows). CUDA: one K1b launch. CPU: :func:`dense_soa_reference`."""
-    _check_table(tri9, 9, "dense_soa")
-    if tri9.device.type == "cpu":
-        return dense_soa_reference(tri9, dx, grid_shape=grid_shape,
+def dense_stream(coef, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
+    """(phi, tid) over the whole grid from the (40, M) table of
+    :func:`_sep_coefs`, for the larger tables. CUDA: one K1b launch. CPU:
+    :func:`dense_sep_reference`."""
+    _check_table(coef, "dense_stream")
+    if coef.device.type == "cpu":
+        return dense_sep_reference(coef, dx, grid_shape=grid_shape,
                                    ijk_offset=ijk_offset)
-    out = _launch("sdf_dense_soa", tri9, dx, grid_shape, ijk_offset)
-    dense_soa.launches += 1
+    out = _launch("sdf_dense_stream", coef, dx, grid_shape, ijk_offset)
+    dense_stream.launches += 1
     return out
 
 
-dense_soa.launches = 0
+dense_stream.launches = 0
 
 
 def dense_distance_field(tri_verts, origin, dx, *, grid_shape, ijk_offset=None):
@@ -256,6 +248,7 @@ def dense_distance_field(tri_verts, origin, dx, *, grid_shape, ijk_offset=None):
     # O(|origin|), for meshes far from the world origin
     tri_local = tri_verts - origin
     kw = dict(grid_shape=grid_shape, ijk_offset=off)
+    coef = _sep_coefs(tri_local).contiguous()
     if m <= _SEP_MAX_TRIS:
-        return dense_sep(_sep_coefs(tri_local).contiguous(), dx, **kw)
-    return dense_soa(tri_local.reshape(m, 9).T.contiguous(), dx, **kw)
+        return dense_sep(coef, dx, **kw)
+    return dense_stream(coef, dx, **kw)

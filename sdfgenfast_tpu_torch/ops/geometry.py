@@ -4,10 +4,9 @@ Counterpart of ``point_triangle_distance_sq_soa`` and ``gather_tri9`` in
 ``sdfgenfast_tpu/ops/geometry.py``: the reference's case analysis and
 clamping (``point_segment_distance`` / ``point_triangle_distance``,
 cpu_lib/makelevelset3.cpp:21-70) as branchless tensor code. It is the
-per-triangle body of the dense kernel K1b (``csrc/dense.cu``), of the
-recompute kernel R1 (``csrc/recompute.cu``) and of their plain twins, so the
-operation order is the JAX package's, step for step: the CUDA kernels repeat
-it with ``--fmad=false``.
+per-triangle body of the recompute kernel R1 (``csrc/recompute.cu``) and of
+its plain twin, so the operation order is the JAX package's, step for step:
+the CUDA kernel repeats it with ``--fmad=false``.
 
 Under autograd it differentiates as the JAX function does: the clamps are
 ``maximum``/``minimum`` pairs (as ``jnp.clip`` and ``jnp.maximum`` are), so

@@ -200,14 +200,14 @@ def test_degenerate_triangle_values():
     np.testing.assert_allclose(float(phi[5, 5, 8]), 0.3, rtol=1e-5)
 
 
-@pytest.mark.parametrize("m,kernel", [(384, "sep"), (385, "soa"),
-                                      (1024, "soa")])
+@pytest.mark.parametrize("m,kernel", [(384, "sep"), (385, "stream"),
+                                      (1024, "stream")])
 def test_gate_selects_kernel_and_matches_jax(m, kernel, monkeypatch):
     mesh = _ico3()
     tv = _tri_verts(mesh, mesh.tris[:m])
     origin, dx, gs = (-1.2, -1.15, -1.1), 0.5, (5, 6, 7)
     called = []
-    for name in ("sep", "soa"):
+    for name in ("sep", "stream"):
         fn = getattr(pdense, f"dense_{name}")
         monkeypatch.setattr(
             pdense, f"dense_{name}",
@@ -229,18 +229,41 @@ def test_gate_rejects_above_cap():
 
 
 def test_twins_agree_on_one_mesh():
-    """K1's and K1b's twins compute one field: equal to the JAX bar, and the
-    sep twin equals a direct call of dense_sep_reference."""
+    """K1's and K1b's wrappers compute one field: on CPU tensors both are
+    dense_sep_reference, bit for bit, and the separable formulation agrees
+    with the per-triangle point-triangle distance (the formulation of the
+    JAX package's _dense_kernel) to the JAX bar."""
     mesh = _ico3()
     tl = torch.from_numpy(_tri_verts(mesh, mesh.tris[:200])
                           - np.float32([-1.2, -1.15, -1.1]))
     kw = dict(grid_shape=(7, 8, 9), ijk_offset=(1, 0, 2))
-    ps, ts = pdense.dense_sep(pdense._sep_coefs(tl), 0.3, **kw)
-    pr, tr = pdense.dense_sep_reference(pdense._sep_coefs(tl), 0.3, **kw)
+    coef = pdense._sep_coefs(tl)
+    ps, ts = pdense.dense_sep(coef, 0.3, **kw)
+    pr, tr = pdense.dense_sep_reference(coef, 0.3, **kw)
+    po, to = pdense.dense_stream(coef, 0.3, **kw)
     assert torch.equal(ps, pr) and torch.equal(ts, tr)
-    po, to = pdense.dense_soa(tl.reshape(-1, 9).T.contiguous(), 0.3, **kw)
-    np.testing.assert_allclose(ps.numpy(), po.numpy(), rtol=RTOL, atol=ATOL)
-    assert pdense.dense_sep.launches == pdense.dense_soa.launches == 0
+    assert torch.equal(po, pr) and torch.equal(to, tr)
+    p = pdense._cell_axes(kw["grid_shape"], 0.3, kw["ijk_offset"], CPU)
+    d2 = torch.stack([pgeom.point_triangle_distance_sq_soa(
+        p, *(tuple(tl[t, v]) for v in range(3))) for t in range(len(tl))])
+    np.testing.assert_allclose(ps.numpy(), np.sqrt(d2.min(0).values.numpy()),
+                               rtol=RTOL, atol=ATOL)
+    assert pdense.dense_sep.launches == pdense.dense_stream.launches == 0
+
+
+def test_stream_range_matches_jax_dense_kernel():
+    """The port's dense path at 1024 triangles (K1b's range: the separable
+    table, dense_stream's twin on the CPU) against the JAX package's
+    _dense_impl, which takes its per-triangle _dense_kernel there (Pallas
+    interpret mode), on the torus the smoke runs, on a grid away from the
+    origin with an index offset."""
+    tv = _tri_verts(P.torus_mesh(32, 16))
+    assert len(tv) == 1024
+    origin, dx, gs, off = (-1.93, -1.71, -0.62), 0.12, (24, 26, 12), (3, 2, 1)
+    pj, tj, pp, tp = _both(tv, origin, dx, gs, off)
+    np.testing.assert_allclose(pp, pj, rtol=RTOL, atol=ATOL)
+    _assert_ids_tie(tv, origin, dx, gs, off, tj, tp)
+    assert (tp >= 0).all() and (tp < len(tv)).all()
 
 
 # -- the pipeline ---------------------------------------------------------

@@ -196,3 +196,170 @@ def test_round_phase_rejects_bad_state():
     with pytest.raises(ValueError):
         vdt_kernel.chamfer(torch.zeros(3, 3, 3, dtype=torch.float64), 0.1)
 
+
+
+# -- K3's plane walk (csrc/vdt_round.cu), transcribed -------------------------
+
+WARPS, TILE_K, AHEAD = 8, 32, 2  # vdt_round.cu: kWarps, kTileK, kAhead
+SLOTS = AHEAD + 3  # kSlots
+
+
+def _ring_walk_round(state, stride, scale, seg):
+    """One round as csrc/vdt_round.cu addresses it, for segments of `seg`
+    cells along i. Block (bz, by, bx) owns the lattice cells i = ri + (qa0 +
+    a) * stride (a < na), j = rj + (qb0 + b) * stride (b < TILE_B: 16 rows
+    where a residue class has 16 or more, else 8), k = k0 + kk, and walks
+    the planes la = 0 .. na + 1 (lattice row qa0 - 1 + la) through a ring of
+    SLOTS plane slots, AHEAD planes staged ahead. A staged position (plane,
+    lb, p) holds the state's x, y, z and id at (ri + (qa0 - 1 + plane) *
+    stride, rj + (qb0 - 1 + lb) * stride, the k of p: min(stride, TILE_K)
+    of halo on each side), or NaN where it is outside the grid (never
+    staged, never read). Plane la serves the cells la - 2, la - 1, la, each
+    cell's positions in (j offset, k offset) order; donors are excluded by
+    index; cell la - 2 retires after plane la, its winner's four words read
+    from the slot that must still hold the winner's plane. Vectorized over
+    all blocks and threads, planes in order."""
+    st = torch.from_numpy(state)
+    bits = st.view(torch.int32)
+    _, ni, nj, nk = st.shape
+    s = stride
+    sb = min(s, TILE_K)
+    w = TILE_K + 2 * sb
+    nan = torch.tensor(float("nan"))
+
+    segs_a = -(-(-(-ni // s)) // seg)
+    bz = torch.arange(min(s, ni) * segs_a)
+    ri, qa0 = bz // segs_a, (bz % segs_a) * seg
+    na = torch.clamp(torch.clamp((ni - ri + s - 1) // s - qa0, max=seg), min=0)
+    lat_j = -(-nj // s)
+    TILE_B = WARPS * (2 if lat_j >= 2 * WARPS else 1)
+    tiles_b = -(-lat_j // TILE_B)
+    by = torch.arange(min(s, nj) * tiles_b)
+    rj, qb0 = by // tiles_b, (by % tiles_b) * TILE_B
+    gj = rj[:, None] + (qb0[:, None] - 1 + torch.arange(TILE_B + 2)) * s
+    k0 = torch.arange(-(-nk // TILE_K)) * TILE_K
+    p = torch.arange(w)
+    gk = (k0[:, None] - s + p if s <= TILE_K
+          else k0[:, None] + (p // TILE_K - 1) * s + p % TILE_K)
+    # broadcast axes: (nbz, nby, nbx, B, K)
+    Z = (slice(None), None, None, None, None)
+    gj_b = [gj[:, None, 1 + ob:1 + ob + TILE_B, None] for ob in (-1, 0, 1)]
+    gk_b = [gk[None, :, None, (1 + oc) * sb:(1 + oc) * sb + TILE_K]
+            for oc in (-1, 0, 1)]
+
+    def plane_row(plane):
+        return ri + (qa0 - 1 + plane) * s  # (nbz,)
+
+    slot_plane = [torch.full(bz.shape, -1) for _ in range(SLOTS)]
+
+    def stage(la):
+        slot_plane[la % SLOTS] = torch.where((la <= na + 1) & (na > 0), la,
+                                             slot_plane[la % SLOTS])
+
+    def read(slot, ob, oc, ids=False):
+        """(3, nbz, nby, nbx, B, K): the x, y, z that the cells (b, kk) read
+        at (lb = b + 1 + ob, p = kk + (1 + oc) * sb) of a slot; with `ids`,
+        also the id bits there (-1 where not staged)."""
+        i = plane_row(slot_plane[slot])[Z]
+        j, k = gj_b[ob + 1], gk_b[oc + 1]
+        ok = ((slot_plane[slot] >= 0)[Z] & (i >= 0) & (i < ni) & (j >= 0)
+              & (j < nj) & (k >= 0) & (k < nk))
+        at = (i.clamp(0, ni - 1), j.clamp(0, nj - 1), k.clamp(0, nk - 1))
+        xyz = torch.where(ok, st[:3, at[0], at[1], at[2]], nan)
+        if not ids:
+            return xyz
+        return xyz, torch.where(ok, bits[3][at], -1)
+
+    def pos(idx):
+        return (idx * scale).to(torch.float32) * DX
+
+    j = gj[:, None, 1:-1, None]
+    k = gk[None, :, None, sb:sb + TILE_K]
+    live = (j < nj) & (k < nk)
+    vb = [(j + ob * s >= 0) & (j + ob * s < nj) for ob in (-1, 0, 1)]
+    vc = [(k + oc * s >= 0) & (k + oc * s < nk) for oc in (-1, 0, 1)]
+    jc, kc = j.clamp(max=nj - 1), k.clamp(max=nk - 1)
+    py, pz = pos(j), pos(k)
+    shape = torch.broadcast_shapes((len(bz), 1, 1, 1, 1), live.shape)
+
+    # per-element block and thread indices, for the winners' gathers
+    ZI, YI, XI, BI, KI = torch.meshgrid(
+        *(torch.arange(d) for d in shape), indexing="ij")
+    out = torch.full(bits.shape, -1, dtype=torch.int32)
+    written = torch.zeros((ni, nj, nk), dtype=torch.int32)
+    bd, win = {}, {}
+    for la in range(AHEAD):
+        stage(la)
+    for la in range(int(na.max()) + 2 if len(bz) else 0):
+        stage(la + AHEAD)
+        slot = la % SLOTS
+        runs = (na > 0) & (la < na + 2)  # blocks with no cells return
+        assert (slot_plane[slot][runs] == la).all()
+        gi = plane_row(la)[Z]
+        vrow = (gi >= 0) & (gi < ni)
+        has = {0: (la >= 2) & runs, 1: (la >= 1) & (la <= na),
+               2: la < na}  # cells la - 2, la - 1, la
+        bd[la] = st[4, (gi + s).clamp(0, ni - 1), jc, kc].expand(shape)
+        win[la] = torch.full(shape, 13)
+        for ob in (-1, 0, 1):
+            for oc in (-1, 0, 1):
+                donor = vrow & vb[ob + 1] & vc[oc + 1]
+                c = read(slot, ob, oc)
+                ey = py - c[1]
+                ez = pz - c[2]
+                ey2, ez2 = ey * ey, ez * ez
+                for q, oa in ((0, 1), (1, 0), (2, -1)):
+                    a = la - 2 + q
+                    if a < 0 or (oa, ob, oc) == (0, 0, 0):
+                        continue
+                    ex = pos(gi + (1 - q) * -s) - c[0]
+                    cd2 = ex * ex + ey2 + ez2
+                    use = donor & has[q][Z]
+                    # a donor that a stored cell reads is always staged
+                    assert not torch.isnan(cd2[use & live]).any()
+                    better = use & (cd2 < bd[a])
+                    bd[a] = torch.where(better, cd2, bd[a])
+                    win[a] = torch.where(
+                        better, (oa + 1) * 9 + (ob + 1) * 3 + (oc + 1), win[a])
+        if la < 2:
+            continue
+        a = la - 2  # complete: retire it
+        m = win.pop(a)
+        oa, ob, oc = m // 9 - 1, (m // 3) % 3 - 1, m % 3 - 1
+        store = has[0][Z] & live
+        # the winner's plane, still held by its slot, and its four words
+        plane = la - 1 + oa
+        held = torch.stack(slot_plane)[plane % SLOTS, ZI] == plane
+        assert held[store].all()
+        at = (ri[ZI] + (qa0[ZI] - 1 + plane) * s, gj[YI, BI + 1 + ob],
+              gk[XI, KI + (1 + oc) * sb])
+        at = tuple(x.clamp(0, n - 1) for x, n in zip(at, (ni, nj, nk)))
+        xyz, tid = st[:3][:, at[0], at[1], at[2]], bits[3][at]
+        ci = (gi - s).expand(shape)
+        vals = torch.cat([xyz.view(torch.int32), tid[None],
+                          bd.pop(a).view(torch.int32)[None]])
+        at = (ci[store], jc.expand(shape)[store], kc.expand(shape)[store])
+        for ch in range(5):
+            out[ch][at] = vals[ch][store]
+        written.index_put_(at, torch.ones_like(at[0], dtype=torch.int32),
+                           accumulate=True)
+    assert (written == 1).all(), "every cell is written by exactly one block"
+    return out.numpy()
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("shape", [(37, 29, 70), (130, 5, 66), (17, 40, 31)])
+def test_ring_walk_bit_equal_to_jacobi_round(shape, stride):
+    """The kernel's blocks, staging ring and donor addressing, run in torch
+    on the CPU, equal vdt._jacobi_round bit for bit on all five channels:
+    lattice tiles for every stride (64 takes the three-run halo in k),
+    scales 1, 2, 4, segments of 1, 2 and 32 cells (the kernel picks 1 to
+    32), tiles of 8 and 16 rows in j, and shapes that end mid-tile on every
+    axis."""
+    st = _random_state(shape, seed=stride + sum(shape), n_seed=1500)
+    for scale, seg in ((1, 1), (2, 32), (4, 2)):
+        pos = PV._level_pos_axes(shape, float(DX), scale, torch.device("cpu"))
+        want = PV._jacobi_round(torch.from_numpy(st), *pos, stride).numpy()
+        got = _ring_walk_round(st, stride, scale, seg)
+        np.testing.assert_array_equal(got, want.view(np.int32),
+                                      err_msg=f"scale {scale}, seg {seg}")
