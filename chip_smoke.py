@@ -8,16 +8,19 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
   2. build the CUDA kernels (nvcc, one process per source) and the native
      host library (make);
   3. each kernel against its plain-torch twin on the card, at the shapes the
-     main path gives it (K1 dense separable, K1b dense streamed, K2 band
-     rows, K3 jump-flood round, K4 chamfer, the probes P1-P4; R1/R1b in phase 4d);
+     main path gives it (K1 the dense kernel, with the share of pairs its
+     cull evaluates; K2 band rows and their coefficient pass, on the main
+     path's CSR and on hand-made segments; K3 jump-flood round, K4 chamfer,
+     the probes P1-P4; R1/R1b in phase 4d);
   4. the main path, both halves. Binned: ``generate_from_file`` on the
      81,920-triangle sphere at 256^3 and 512^3, held against the reference
      binary's sparse goldens (bars of tests/test_parity_golden.py). Dense:
      the CLI (``python -m sdfgenfast_tpu_torch.cli``) on the three box
      goldens, box36 at 256 x 341 x 425 and a 1024-triangle torus at
-     256 x 256 x 75 held against the binned path, and a small
-     ``generate_sdf_batch``. The probe tool (``tools.micro_bench.run``, with
-     the SASS instruction counts of its loops). The differentiable path: one
+     256 x 256 x 75 (K1 at the dense cap) held against the binned path, and
+     a small ``generate_sdf_batch``. The probe tool
+     (``tools.micro_bench.run``, with the SASS instruction counts of its
+     loops, and of K1's and K2's inner loops). The differentiable path: one
      ``models.SDFGenerator.train_step`` on sphere82k at 256^3 (binned) and
      box36 (dense, K1), R1/R1b against their twins and a finite difference
      of the loss. Each path's launch counters are set to 0 just before it
@@ -128,11 +131,17 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # FP32 operations per unit of work, by count of each kernel's formula: a
 # (cell, triangle) pair of the separable dense distance, a (cell,
-# candidate) pair of the band kernel, a donor of a jump-flood round (3
-# subtractions, 3 products, 2 sums, 1 compare), an offset of a chamfer pass
-# (1 add, 1 min), a cell of R1 and of R1b.
+# candidate) pair of the band kernel, a triangle of its coefficient pass
+# (band_coefs_kernel's sums, products, clamps, two divisions and rsqrt), a
+# donor of a jump-flood round (3 subtractions, 3 products, 2 sums, 1
+# compare), an offset of a chamfer pass (1 add, 1 min), a cell of R1 and of
+# R1b.
 OPS_DENSE_PAIR = 45
+# the dense pair's plane test alone, for a pair the cull skips: h = (cx*x +
+# (cy*y + c0)) + cz*z, h*h and the compare with the cell's best
+OPS_DENSE_PLANE = 8
 OPS_BAND_PAIR = 90
+OPS_BAND_COEF = 150
 OPS_VDT_DONOR = 9
 OPS_CHAMFER_OFFSET = 2
 OPS_R1_CELL = 110
@@ -154,31 +163,10 @@ def k3_bound(shape):
     return bound_ms(cells * 26 * OPS_VDT_DONOR, cells * 40)
 
 
-def check_k2(torch, device, mesh, grid):
-    """K2 vs its twin on the main path's CSR: phi and cp within rtol 3e-6
+def k2_compare(label, got, want, rows):
+    """K2 rows against the twin's at `rows`: phi and cp within rtol 3e-6
     (atol 1e-6 for cells on the surface), ids equal except at exact d2
-    ties. Returns (max_abs_err, kernel ms, twin ms)."""
-    from sdfgenfast_tpu_torch.ops import band_kernel
-    from sdfgenfast_tpu_torch.pipeline import bin_mesh
-
-    binned = bin_mesh(mesh, grid)
-    csr = binned.band_csr
-    dx = float(np.float32(grid.dx))
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    verts = dev(mesh.verts)
-    origin = dev(np.asarray(grid.origin, np.float32))
-    tri9 = (verts[dev(binned.tris).long()] - origin).reshape(-1, 9).contiguous()
-    args = (tri9, dev(csr["pair"]), dev(csr["ids"]), dev(csr["off"]),
-            dev(csr["cnt"]), dx)
-    kw = dict(tiles_dim=binned.tiles_dim, grid_shape=grid.shape)
-    got = band_kernel.band_rows(*args, **kw)
-    want = band_kernel.band_rows_reference(*args, **kw)
-    torch.cuda.synchronize()
-    T = int(np.prod(binned.tiles_dim))
-    rows = dev(csr["ids"][csr["ids"] < T]).long()
+    ties. Returns (max_abs_err, number of id mismatches)."""
     g = [x[rows].cpu().numpy() for x in got]
     w = [x[rows].cpu().numpy() for x in want]
     err = 0.0
@@ -186,29 +174,111 @@ def check_k2(torch, device, mesh, grid):
         if name == "tid":
             continue
         np.testing.assert_allclose(a, b, rtol=3e-6, atol=1e-6,
-                                   err_msg=f"K2 {name}")
+                                   err_msg=f"{label} {name}")
         err = max(err, float(np.abs(a - b).max()))
     mism = g[1] != w[1]
     if mism.any():
         # a different id is only allowed where the two distances tie
         np.testing.assert_allclose(g[0][mism], w[0][mism], rtol=3e-6,
-                                   atol=1e-6, err_msg="K2 tid at non-tie")
+                                   atol=1e-6, err_msg=f"{label} tid at non-tie")
         if mism.mean() > 1e-4:
-            raise AssertionError(f"K2: {int(mism.sum())} tid mismatches")
-    print(f"K2 band_rows vs twin: A={len(rows)} active tiles, "
-          f"P={len(csr['pair'])}, tid mismatches {int(mism.sum())}, "
-          f"max|err| {err:.3e}", flush=True)
-    ms = cuda_ms(torch, lambda: band_kernel.band_rows(*args, **kw), 10)
-    plain = cuda_ms(torch, lambda: band_kernel.band_rows_reference(*args, **kw), 2)
-    # the bound: every (cell, real candidate) pair of the active tiles; the
-    # vertex table, the CSR arrays and the five output rows of each tile
-    ids, off, cnt, pair = (csr[k] for k in ("ids", "off", "cnt", "pair"))
-    real = sum(int((pair[o:o + c] < len(binned.tris)).sum())
-               for t, o, c in zip(ids, off, cnt) if t < T)
-    bound = bound_ms(real * 512 * OPS_BAND_PAIR,
-                     36 * len(binned.tris) + 4 * len(pair) + 12 * len(ids)
-                     + 20 * 512 * len(rows))
-    return err, ms, plain, bound
+            raise AssertionError(f"{label}: {int(mism.sum())} tid mismatches")
+    return err, int(mism.sum())
+
+
+def check_k2(torch, device, mesh, grid):
+    """K2 vs its twin: the coefficient pass within rtol 3e-6 of
+    ``_band_coefs``; the rows on the main path's CSR and on hand-made
+    segments (testing.k2_segments) within the bars of k2_compare. Times the two
+    launches alone (coefficient pass + tile walk) and the five row fills
+    apart. Returns a dict of errors, times and bounds."""
+    from sdfgenfast_tpu_torch import testing
+    from sdfgenfast_tpu_torch.ops import band_kernel
+    from sdfgenfast_tpu_torch.pipeline import bin_mesh
+
+    binned = bin_mesh(mesh, grid)
+    csr = binned.band_csr
+    dx = float(np.float32(grid.dx))
+    T = int(np.prod(binned.tiles_dim))
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    verts = dev(mesh.verts)
+    origin = dev(np.asarray(grid.origin, np.float32))
+    tri9 = (verts[dev(binned.tris).long()] - origin).reshape(-1, 9).contiguous()
+    coef = band_kernel.band_coefs(tri9)
+    want_coef = band_kernel._band_coefs(tri9)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(coef.cpu().numpy(), want_coef.cpu().numpy(),
+                               rtol=3e-6, atol=1e-6, err_msg="K2 coefficients")
+    coef_err = abs_err(coef, want_coef)
+    coef_bits = int((bits(torch, coef) != bits(torch, want_coef)).sum())
+
+    args = (tri9, dev(csr["pair"]), dev(csr["ids"]), dev(csr["off"]),
+            dev(csr["cnt"]), dx)
+    kw = dict(tiles_dim=binned.tiles_dim, grid_shape=grid.shape)
+    got = band_kernel.band_rows(*args, **kw)
+    want = band_kernel.band_rows_reference(*args, **kw)
+    torch.cuda.synchronize()
+    active = csr["ids"][csr["ids"] < T]
+    err, mism = k2_compare("K2", got, want, dev(active).long())
+    print(f"K2 band_rows vs twin: A={len(active)} active tiles, "
+          f"P={len(csr['pair'])}, tid mismatches {mism}, max|err| "
+          f"{err:.3e}; coefficient table max|err| {coef_err:.3e} "
+          f"({coef_bits} of {coef.numel()} words not bit-equal)", flush=True)
+
+    hand = testing.k2_segments(tri9.reshape(-1, 3, 3).cpu().numpy(), dx,
+                       binned.tiles_dim, active, (1, 129, 20))
+    hargs = (*(dev(a) for a in hand), dx)
+    got = band_kernel.band_rows(*hargs, **kw)
+    want = band_kernel.band_rows_reference(*hargs, **kw)
+    torch.cuda.synchronize()
+    tiles = dev(hand[2][:-1]).long()
+    herr, hmism = k2_compare("K2 hand-made", got, want, tiles)
+    for x, y in zip(got, want):  # the padded slot's junk row and the rest
+        if not torch.equal(bits(torch, x[T]), bits(torch, y[T])):
+            raise AssertionError("K2 hand-made: the padded slot's row differs")
+    print(f"K2 hand-made segments (1, 129 in three chunks, 20 + two "
+          f"zero-area, 40 on the far corner tile {T - 1}; a padded slot) vs "
+          f"twin: "
+          f"tid mismatches {hmism}, max|err| {herr:.3e}", flush=True)
+    err = max(err, herr, coef_err)
+
+    upper = band_kernel._upper(grid.shape, dx)
+    rows = band_kernel._filled_rows(T, upper, device)
+    pair, ids, off, cnt = args[1:5]
+    # queued behind a spin of the card: the host's launch overhead is
+    # longer than the coefficient pass
+    times = {
+        "coefs": queued_ms(torch, lambda: band_kernel.band_coefs(tri9), 20),
+        "walk": queued_ms(torch, lambda: band_kernel._launch_rows(
+            rows, coef, pair, ids, off, cnt, dx, binned.tiles_dim,
+            grid.shape), 20),
+        "fills": queued_ms(torch, lambda: band_kernel._filled_rows(
+            T, upper, device), 20),
+        "whole": queued_ms(torch, lambda: band_kernel.band_rows(*args, **kw),
+                           10),
+        "plain": cuda_ms(torch, lambda: band_kernel.band_rows_reference(
+            *args, **kw), 2),
+        "coefs_plain": cuda_ms(torch, lambda: band_kernel._band_coefs(tri9),
+                               10),
+    }
+    # the bounds: every (cell, real candidate) pair of the active tiles; the
+    # table rows, the CSR arrays and the five output rows of each tile; the
+    # coefficient pass reads 36 B and writes 160 B per triangle
+    M = len(binned.tris)
+    real = sum(int((csr["pair"][o:o + c] < M).sum())
+               for t, o, c in zip(csr["ids"], csr["off"], csr["cnt"]) if t < T)
+    bounds = {
+        "walk": bound_ms(real * 512 * OPS_BAND_PAIR,
+                         160 * M + 4 * len(csr["pair"]) + 12 * len(csr["ids"])
+                         + 20 * 512 * len(active)),
+        "coefs": bound_ms(M * OPS_BAND_COEF, 196 * M),
+    }
+    print(f"K2 at {grid.shape}: {real} (tile, candidate) pairs, "
+          f"{real * 512} (cell, candidate) pairs", flush=True)
+    return dict(err=err, times=times, bounds=bounds, pairs=real)
 
 
 K3_STRIDES = (1, 2, 3, 4, 8, 16, 32, 64)
@@ -403,46 +473,49 @@ def box36(Mesh, box_mesh):
     return Mesh(np.concatenate([m.verts, cent]), np.asarray(tris, np.uint32))
 
 
-def check_k1(torch, device, box, box_grid):
-    """K1 vs its twin: box36 on its full 256-class grid, icosphere(2) (320
-    triangles: the table needs the shared-memory opt-in) 1000 units from
-    the world origin on a ragged grid with an index offset, and zero-area
-    triangles. Returns (max_abs_err, ms, plain_ms) at box36's grid."""
-    from sdfgenfast_tpu_torch.mesh import Mesh, icosphere
-    from sdfgenfast_tpu_torch.ops import dense
+def k1_counted(torch, table, dx, grid_shape):
+    """K1's counting build (sdf_dense_stream_counted: the same walk, which
+    also counts the (warp, triangle) steps the cull does not skip). Not a
+    main-path launch: dense_stream's counter is untouched. Returns (phi,
+    tid, evaluated steps, all steps)."""
+    from sdfgenfast_tpu_torch.kernels import build
 
-    def case(label, mesh, origin, dx, shape, off=(0, 0, 0)):
-        tris = tri_local(torch, device, mesh, origin)
-        table = dense._sep_coefs(tris).contiguous()
-        err = check_dense(torch, device, label, dense.dense_sep,
-                          dense.dense_sep_reference, table, tris, dx, shape,
-                          off)
-        return err, table
-
-    dx = float(np.float32(box_grid.dx))
-    err, table = case("K1 box36", box, box_grid.origin, dx, box_grid.shape)
-    sphere = icosphere(2, radius=1.0, center=(1000.03, 999.98, 1000.05))
-    err = max(err, case("K1 icosphere(2) at 1000", sphere,
-                        (998.6, 998.7, 998.65), 0.05, (37, 29, 53),
-                        (5, 3, 7))[0])
-    degen = Mesh(np.asarray([[0.5, 0.5, 0.5], [0.2, 0.3, 0.4],
-                             [0.9, 0.3, 0.4], [0.1, 0.9, 0.2],
-                             [0.8, 0.7, 0.9]], np.float32),
-                 np.asarray([[0, 0, 0], [1, 2, 2], [1, 3, 4]], np.uint32))
-    err = max(err, case("K1 zero-area", degen, (0, 0, 0), 0.05,
-                        (24, 20, 31))[0])
-    kw = dict(grid_shape=box_grid.shape)
-    ms = cuda_ms(torch, lambda: dense.dense_sep(table, dx, **kw), 10)
-    plain = cuda_ms(torch, lambda: dense.dense_sep_reference(table, dx, **kw),
-                    2)
-    return err, ms, plain
+    phi = torch.empty(grid_shape, dtype=torch.float32, device=table.device)
+    tid = torch.empty(grid_shape, dtype=torch.int32, device=table.device)
+    evaluated = torch.zeros(1, dtype=torch.int64, device=table.device)
+    build.check(build.library().sdf_dense_stream_counted(
+        table.data_ptr(), table.shape[1], *grid_shape, 0, 0, 0, float(dx),
+        phi.data_ptr(), tid.data_ptr(), evaluated.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "sdf_dense_stream_counted")
+    ni, nj, nk = grid_shape
+    steps = ni * -(-nj // 8) * -(-nk // 16) * table.shape[1]
+    return phi, tid, int(evaluated.item()), steps
 
 
-def check_k1b(torch, device, torus, torus_grid):
-    """K1b (dense_stream) vs its twin dense_sep_reference: the 1024-triangle
-    torus on its 256-class grid and on a ragged grid with an index offset,
-    and M = 385 (three full chunks and a one-triangle one) with an index
-    offset. Returns (max_abs_err, ms, plain_ms) at the 256-class grid."""
+def k1_bound(cells, m, share):
+    """K1's bound at this run's cull: a share `share` of the (cell,
+    triangle) pairs takes the whole formula (OPS_DENSE_PAIR), the rest only
+    its plane test (OPS_DENSE_PLANE); the table read once, phi and the id
+    written once."""
+    pairs = cells * m
+    return bound_ms(pairs * (share * OPS_DENSE_PAIR
+                             + (1 - share) * OPS_DENSE_PLANE),
+                    160 * m + 8 * cells)
+
+
+def check_k1(torch, device, box, box_grid, torus, torus_grid):
+    """K1 (dense_stream) vs its twin dense_sep_reference. On a table of one
+    chunk (at most 128 triangles, staged once per block): box36 on its full
+    256-class grid, icosphere(1) (80 triangles) 1000 units from the world
+    origin on a ragged grid with an index offset, zero-area triangles, and
+    M = 128 (a full chunk). On a streamed table: M = 129 (a one-triangle
+    second chunk), icosphere(2) (320: two full chunks and a half one) at
+    1000 with an offset, M = 385 (three full chunks and a one-triangle one),
+    all on ragged grids with index offsets, and the 1024-triangle torus on
+    its 256-class grid and on a ragged grid. Times box36 and torus1024
+    beside the twin; counts the share of (warp, triangle) steps the cull
+    evaluates on both with the counting build, which must write the same
+    bits as the kernel. Returns a dict."""
     from sdfgenfast_tpu_torch.mesh import Mesh, icosphere
     from sdfgenfast_tpu_torch.ops import dense
 
@@ -452,21 +525,61 @@ def check_k1b(torch, device, torus, torus_grid):
                            dense.dense_sep_reference, table, tris, dx, shape,
                            off), table
 
-    dx = float(np.float32(torus_grid.dx))
-    tris = tri_local(torch, device, torus, torus_grid.origin)
-    err, table = case("K1b torus1024", tris, dx, torus_grid.shape)
-    err = max(err, case("K1b torus1024 ragged", tris, dx, (45, 38, 29),
-                        (60, 90, 20))[0])
+    dx = float(np.float32(box_grid.dx))
+    err, table = case("K1 box36", tri_local(torch, device, box,
+                                            box_grid.origin), dx,
+                      box_grid.shape)
+    far_origin = (998.6, 998.7, 998.65)
+    for level in (1, 2):
+        sphere = icosphere(level, radius=1.0, center=(1000.03, 999.98, 1000.05))
+        err = max(err, case(f"K1 icosphere({level}) at 1000", tri_local(
+            torch, device, sphere, far_origin), 0.05, (37, 29, 53),
+            (5, 3, 7))[0])
+    degen = Mesh(np.asarray([[0.5, 0.5, 0.5], [0.2, 0.3, 0.4],
+                             [0.9, 0.3, 0.4], [0.1, 0.9, 0.2],
+                             [0.8, 0.7, 0.9]], np.float32),
+                 np.asarray([[0, 0, 0], [1, 2, 2], [1, 3, 4]], np.uint32))
+    err = max(err, case("K1 zero-area", tri_local(torch, device, degen,
+                                                  (0, 0, 0)),
+                        0.05, (24, 20, 31))[0])
     ico = icosphere(3, radius=1.0, center=(0.02, -0.01, 0.03))
-    ico = Mesh(ico.verts, ico.tris[:385])
-    err = max(err, case("K1b icosphere(3)[:385]",
-                        tri_local(torch, device, ico, (-1.2, -1.15, -1.1)),
-                        0.04, (37, 61, 45), (9, 2, 7))[0])
-    kw = dict(grid_shape=torus_grid.shape)
-    ms = cuda_ms(torch, lambda: dense.dense_stream(table, dx, **kw), 10)
-    plain = cuda_ms(torch, lambda: dense.dense_sep_reference(table, dx, **kw),
-                    2)
-    return err, ms, plain
+    for m in (128, 129, 385):
+        e = case(f"K1 icosphere(3)[:{m}]", tri_local(
+            torch, device, Mesh(ico.verts, ico.tris[:m]), (-1.2, -1.15, -1.1)),
+            0.04, (37, 61, 45), (9, 2, 7))[0]
+        err = max(err, e)
+    tdx = float(np.float32(torus_grid.dx))
+    tris = tri_local(torch, device, torus, torus_grid.origin)
+    terr, ttable = case("K1 torus1024", tris, tdx, torus_grid.shape)
+    terr = max(terr, case("K1 torus1024 ragged", tris, tdx, (45, 38, 29),
+                          (60, 90, 20))[0])
+
+    # the share of (warp, triangle) steps that the cull evaluates
+    shares = {}
+    for label, tab, d, shape in (("box36", table, dx, box_grid.shape),
+                                 ("torus1024", ttable, tdx, torus_grid.shape)):
+        phi, tid, n_eval, steps = k1_counted(torch, tab, d, shape)
+        want_phi, want_tid = dense.dense_stream(tab, d, grid_shape=shape)
+        if not (torch.equal(bits(torch, phi), bits(torch, want_phi))
+                and torch.equal(tid, want_tid)):
+            raise AssertionError(f"K1 {label}: the counting build differs")
+        shares[label] = n_eval / steps
+        print(f"K1 {label}: the cull evaluated {n_eval} of {steps} (warp, "
+              f"triangle) steps ({shares[label]:.1%}); a warp covers 128 "
+              f"cells; the counting build wrote the kernel's bits",
+              flush=True)
+    kw = dict(grid_shape=box_grid.shape)
+    tkw = dict(grid_shape=torus_grid.shape)
+    return dict(
+        err=err, torus_err=terr, evaluated_share=shares["box36"],
+        torus_evaluated_share=shares["torus1024"],
+        ms=cuda_ms(torch, lambda: dense.dense_stream(table, dx, **kw), 10),
+        plain=cuda_ms(torch, lambda: dense.dense_sep_reference(
+            table, dx, **kw), 2),
+        torus_ms=cuda_ms(torch, lambda: dense.dense_stream(ttable, tdx, **tkw),
+                         10),
+        torus_plain=cuda_ms(torch, lambda: dense.dense_sep_reference(
+            ttable, tdx, **tkw), 2))
 
 
 def golden_bars(phi, grid, golden_path):
@@ -633,9 +746,27 @@ def check_golden(phi, golden_path, far_key, stride, grid):
     return far / float(g["dx"])
 
 
-def sass_counts(lib_path):
-    """FFMA / FMUL / FADD counts of each probe kernel's SASS (cuobjdump), or
-    None without cuobjdump: a folded loop would show a handful."""
+def kernel_name(mangled):
+    """A kernel's name (with its bool template arguments) from its mangled
+    symbol: the length-prefixed identifier that ends in ``_kernel``."""
+    # the innermost name is the last one; a hash's digits may precede its
+    # length, so every suffix of a run of digits is tried
+    for m in reversed(list(re.finditer(r"\d+", mangled))):
+        for k in reversed(range(len(m.group(0)))):
+            n = int(m.group(0)[k:])
+            name = mangled[m.end():m.end() + n]
+            if len(name) == n and name.endswith("_kernel"):
+                t = re.match(r"I((?:Lb[01]E)+)E", mangled[m.end() + n:])
+                if t is None:
+                    return name
+                return name + "<" + ", ".join(
+                    "true" if b == "1" else "false"
+                    for b in re.findall(r"Lb([01])E", t.group(1))) + ">"
+    return mangled
+
+
+def sass_text(lib_path):
+    """The library's SASS (cuobjdump -sass), or None without cuobjdump."""
     import shutil
 
     tool = next((c for c in (os.path.join(os.environ.get("CUDA_HOME", ""),
@@ -648,18 +779,72 @@ def sass_counts(lib_path):
                        text=True, timeout=120)
     if r.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {r.stderr[-2000:]}")
-    counts, name = {}, None
-    for line in r.stdout.splitlines():
+    return r.stdout
+
+
+def sass_functions(text):
+    """{short kernel name: [(address, instruction)], {label: index}} of
+    every function in a SASS listing."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1)
-            counts[name] = {"FFMA": 0, "FMUL": 0, "FADD": 0}
-        elif name is not None:
-            op = re.search(r"\b(FFMA|FMUL|FADD)\b", line)
-            if op:
-                counts[name][op.group(1)] += 1
-    return {k: v for k, v in counts.items()
-            if re.search(r"vpu_peak|vpu_mixed|scale2|add1", k)}
+            cur = funcs[kernel_name(m.group(1))] = ([], {})
+            continue
+        if cur is None:
+            continue
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            cur[1][lab.group(1)] = len(cur[0])
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if ins:
+            cur[0].append((int(ins.group(1), 16), ins.group(2)))
+    return funcs
+
+
+def sass_counts(text):
+    """FFMA / FMUL / FADD counts of each probe kernel's SASS: a folded loop
+    would show a handful."""
+    counts = {}
+    for name, (ins, _) in sass_functions(text).items():
+        if re.search(r"vpu_peak|vpu_mixed|scale2|add1", name):
+            counts[name] = {op: sum(bool(re.search(rf"\b{op}\b", i))
+                                    for _, i in ins)
+                            for op in ("FFMA", "FMUL", "FADD")}
+    return counts
+
+
+def sass_inner_loops(text, pattern=r"dense_stream|band_rows"):
+    """For each kernel matching `pattern`, its innermost loop (a backward
+    branch's span that holds no other) with the most FP32 instructions:
+    (instructions, FP32 arithmetic/compare/select instructions, LDS
+    instructions). The walks load a candidate's ten float4 with ten LDS, so
+    LDS / 10 is the candidates per trip of an unrolled loop."""
+    out = {}
+    fp = re.compile(r"^(@!?U?P[T\d]+\s+)?(FFMA|FMUL|FADD|FMNMX|FSETP|FSEL|"
+                    r"FSET|FCHK|MUFU)\b")
+    for name, (ins, labels) in sass_functions(text).items():
+        if not re.search(pattern, name):
+            continue
+        index = {a: i for i, (a, _) in enumerate(ins)}
+        loops = []
+        for i, (_, op) in enumerate(ins):
+            m = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", op)
+            if not m:
+                continue
+            tgt = (labels.get(m.group(1)) if m.group(1)
+                   else index.get(int(m.group(2), 16)))
+            if tgt is not None and tgt <= i:
+                loops.append((tgt, i))
+        inner = [lp for lp in loops if not any(
+            o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        stats = [(hi - lo + 1,
+                  sum(bool(fp.search(op)) for _, op in ins[lo:hi + 1]),
+                  sum(bool(re.search(r"\bLDS\b", op))
+                      for _, op in ins[lo:hi + 1])) for lo, hi in inner]
+        out[name] = max(stats, key=lambda s: s[1], default=None)
+    return out
 
 
 def finite_err(torch, got, want):
@@ -984,10 +1169,9 @@ def main():
     with open(lib_path + ".log") as fh:
         for line in fh:
             if "Compiling entry function" in line:
-                # the kernel's name inside its mangled symbol
-                name = re.search(r"\d([a-z_]+_kernel)", line)
-                print("  ptxas:", name.group(1) if name else line.strip(),
-                      flush=True)
+                name = re.search(r"function '(\S+)'", line)
+                print("  ptxas:", kernel_name(name.group(1)) if name
+                      else line.strip(), flush=True)
             elif "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip(), flush=True)
 
@@ -1007,20 +1191,19 @@ def main():
             np.asarray(bounds[1], np.float32), nx=n - 2))
     box = box36(Mesh, box_mesh)
     box_grid = sizing_mode2a_proportional(*box.bounds(), 256, 1)
-    torus = torus_mesh(32, 16)  # 1024 triangles: K1b
+    torus = torus_mesh(32, 16)  # 1024 triangles: K1's streamed table
     torus_grid = sizing_python_api(*torus.bounds(), nx=254)
     if box_grid.shape != (256, 341, 425) or torus_grid.shape != (256, 256, 75):
         raise AssertionError(f"dense grids {box_grid.shape} {torus_grid.shape}")
-    k1_err, k1_ms, k1_plain = check_k1(torch, device, box, box_grid)
-    k1b_err, k1b_ms, k1b_plain = check_k1b(torch, device, torus, torus_grid)
-    k2_err, k2_ms, k2_plain, k2_bound = check_k2(torch, device, *grids[256])
+    k1 = check_k1(torch, device, box, box_grid, torus, torus_grid)
+    k2 = check_k2(torch, device, *grids[256])
     k3_err = check_k3(torch, device)
     k4_err, k4_ms, k4_plain = check_k4(torch, device, grids[256][1].shape)
     probe_err = check_probes(torch, device)
 
     # -- 4a. the binned path against the reference binary's goldens --------
-    binned_counters = (band_kernel.band_rows, vdt_kernel.round_phase,
-                       vdt_kernel.chamfer)
+    binned_counters = (band_kernel.band_coefs, band_kernel.band_rows,
+                       vdt_kernel.round_phase, vdt_kernel.chamfer)
     launches = {fn.__name__: 0 for fn in binned_counters}
     results = {}
     for n, (mesh_name, golden, far_key, stride) in cases.items():
@@ -1042,7 +1225,8 @@ def main():
         # at 64^3, 8 at 128^3), 5 at the middle level, 7 at full resolution;
         # 2 chamfer passes
         rounds = {256: 19, 512: 20}[n]
-        if call != {"band_rows": 1, "round_phase": rounds, "chamfer": 2}:
+        if call != {"band_coefs": 1, "band_rows": 1, "round_phase": rounds,
+                    "chamfer": 2}:
             raise AssertionError(f"sphere82k {n}^3 launches {call}")
         for k, v in call.items():
             launches[k] += v
@@ -1050,22 +1234,21 @@ def main():
 
     # -- 4b. the dense path: CLI goldens, box36, torus1024, a batch ----------
     cli_goldens()
-    dense.dense_sep.launches = 0
     dense.dense_stream.launches = 0
     t0 = time.perf_counter()
     box_phi = generate_sdf(box.verts, box.tris, box_grid.origin, box_grid.dx,
                            *box_grid.shape, device=device)
     box_cold = time.perf_counter() - t0
+    dense_launches = {"box36": dense.dense_stream.launches}
+    dense.dense_stream.launches = 0
     torus_phi, torus_meta = generate_from_mesh(torus.verts, torus.tris,
                                                nx=254, device=device)
-    launches.update(dense_sep=dense.dense_sep.launches,
-                    dense_stream=dense.dense_stream.launches)
-    print(f"dense-path launches: K1 {launches['dense_sep']}, K1b "
-          f"{launches['dense_stream']}; box36 cold call {box_cold:.3f} s",
-          flush=True)
-    if launches["dense_sep"] != 1 or launches["dense_stream"] != 1:
-        raise AssertionError("box36 and torus1024 take one K1 and one K1b "
-                             "launch")
+    dense_launches["torus1024"] = dense.dense_stream.launches
+    launches["dense_stream"] = sum(dense_launches.values())
+    print(f"dense-path launches: K1 {dense_launches}; box36 cold call "
+          f"{box_cold:.3f} s", flush=True)
+    if dense_launches != {"box36": 1, "torus1024": 1}:
+        raise AssertionError("box36 and torus1024 take one K1 launch each")
     if torus_meta["dx"] != torus_grid.dx or torus_phi.shape != torus_grid.shape:
         raise AssertionError("generate_from_mesh sized the torus differently")
     check_dense_vs_binned(torch, device, "box36", box, box_grid, box_phi)
@@ -1077,8 +1260,8 @@ def main():
     lo = np.min([m.bounds()[0] for m in batch], axis=0)
     hi = np.max([m.bounds()[1] for m in batch], axis=0)
     bgrid = sizing_mode2a_proportional(lo, hi, 128, 1)
-    counters = (band_kernel.band_rows, vdt_kernel.round_phase,
-                vdt_kernel.chamfer, dense.dense_sep, dense.dense_stream)
+    counters = (band_kernel.band_coefs, band_kernel.band_rows,
+                vdt_kernel.round_phase, vdt_kernel.chamfer, dense.dense_stream)
     for fn in counters:
         fn.launches = 0
     got = generate_sdf_batch([(m.verts, m.tris) for m in batch],
@@ -1091,7 +1274,8 @@ def main():
         if not np.array_equal(phi.view(np.int32), want.view(np.int32)):
             raise AssertionError("generate_sdf_batch differs from single calls")
     print(f"generate_sdf_batch [box36, torus1024, sphere82k] at {bgrid.shape}:"
-          f" equal to single calls; launches K2/K3/K4/K1/K1b {batch_launches}",
+          f" equal to single calls; launches K2 coefficients/K2/K3/K4/K1 "
+          f"{batch_launches}",
           flush=True)
     # -- 4c. the probe tool's entry point ------------------------------------
     probes = (mb.vpu_peak, mb.vpu_mixed, mb.grid_overhead, mb.hbm_stream)
@@ -1100,17 +1284,22 @@ def main():
     probe_res = mb.run(device)
     probe_launches = {fn.__name__: fn.launches for fn in probes}
     print(f"probe tool launches: {probe_launches}", flush=True)
-    counts = sass_counts(lib_path)
-    if counts is None:
+    sass = sass_text(lib_path)
+    if sass is None:
         print("cuobjdump not found: SASS counts not taken", flush=True)
     else:
-        for name, c in sorted(counts.items()):
+        for name, c in sorted(sass_counts(sass).items()):
             print(f"  SASS {name}: FFMA {c['FFMA']}, FMUL {c['FMUL']}, "
                   f"FADD {c['FADD']}", flush=True)
+        for name, c in sorted(sass_inner_loops(sass).items()):
+            print(f"  SASS {name} inner loop: " + (
+                "none found" if c is None else
+                f"{c[0]} instructions, {c[1]} FP32, {c[2]} LDS"), flush=True)
 
     # -- 4d. the differentiable path: SDFGenerator.train_step, both halves --
-    diff_counters = (band_kernel.band_rows, vdt_kernel.round_phase,
-                     vdt_kernel.chamfer, dense.dense_sep,
+    diff_counters = (band_kernel.band_coefs, band_kernel.band_rows,
+                     vdt_kernel.round_phase, vdt_kernel.chamfer,
+                     dense.dense_stream,
                      recompute.recompute_forward, recompute.recompute_backward)
     diff = {
         "sphere82k": differentiable_half(torch, device, "sphere82k 256^3",
@@ -1122,12 +1311,14 @@ def main():
         print(f"differentiable {label}: loss {r['loss']:.6e}, launches "
               f"{r['launches']}, SDFGenerator binning {r['bin_s']:.3f} s",
               flush=True)
-    need = {"sphere82k": ("band_rows", "round_phase", "chamfer",
-                          "recompute_forward", "recompute_backward"),
-            "box36": ("dense_sep", "recompute_forward", "recompute_backward")}
-    checks = list(launches.items()) + list(zip(
-        ("batch K2", "batch K3", "batch K4", "batch K1", "batch K1b"),
-        batch_launches)) + list(probe_launches.items()) + [
+    need = {"sphere82k": ("band_coefs", "band_rows", "round_phase",
+                          "chamfer", "recompute_forward",
+                          "recompute_backward"),
+            "box36": ("dense_stream", "recompute_forward",
+                      "recompute_backward")}
+    checks = list(launches.items()) + list(dense_launches.items()) + list(zip(
+        ("batch K2 coefficients", "batch K2", "batch K3", "batch K4",
+         "batch K1"), batch_launches)) + list(probe_launches.items()) + [
         (f"{label} {k}", diff[label]["launches"][k])
         for label, keys in need.items() for k in keys]
     for name, count in checks:
@@ -1220,11 +1411,12 @@ def main():
     n_256 = int(np.prod(grids[256][1].shape))
     m_sphere = len(grids[256][0].tris)
     bounds = {
-        "dense_sep": bound_ms(OPS_DENSE_PAIR * n_box * len(box.tris),
-                              160 * len(box.tris) + 8 * n_box),
-        "dense_stream": bound_ms(OPS_DENSE_PAIR * n_torus * len(torus.tris),
-                                 160 * len(torus.tris) + 8 * n_torus),
-        "band_rows": k2_bound,
+        # K1 at the share of pairs its cull evaluated in this run
+        "dense_stream": k1_bound(n_box, len(box.tris), k1["evaluated_share"]),
+        "dense_stream_torus1024": k1_bound(n_torus, len(torus.tris),
+                                           k1["torus_evaluated_share"]),
+        "band_coefs": k2["bounds"]["coefs"],
+        "band_rows": k2["bounds"]["walk"],
         "vdt_round": k3_bound(grids[256][1].shape),
         "chamfer": bound_ms(2 * n_256 * 26 * OPS_CHAMFER_OFFSET, 2 * 8 * n_256),
         "recompute_phi": bound_ms(OPS_R1_CELL * n_256,
@@ -1245,18 +1437,40 @@ def main():
           f"{k3_call_ms:.4f} ms (19 rounds), bound "
           f"{7 * k3_bound((256,) * 3)[0] + 5 * k3_bound((128,) * 3)[0] + 7 * k3_bound((64,) * 3)[0]:.4f} ms",
           flush=True)
+    for label, cells, m, share, ms in (
+            ("box36", n_box, len(box.tris), k1["evaluated_share"], k1["ms"]),
+            ("torus1024", n_torus, len(torus.tris),
+             k1["torus_evaluated_share"], k1["torus_ms"])):
+        formula = k1_bound(cells, m, 1.0)[0]
+        culled = k1_bound(cells, m, share)[0]
+        print(f"[{card}] K1 {label} bound: {culled:.4f} ms with {share:.1%} "
+              f"of pairs evaluated ({culled / ms:.1%} of it), {formula:.4f} "
+              f"ms if every pair took the whole formula ({formula / ms:.1%})",
+              flush=True)
+    k2t = k2["times"]
     for name, key, shape, ms, plain in (
-            ("K1 dense_sep (box36)", "dense_sep", box_grid.shape, k1_ms,
-             k1_plain),
-            ("K1b dense_stream (torus1024)", "dense_stream", torus_grid.shape,
-             k1b_ms, k1b_plain),
-            ("K2 band_rows", "band_rows", "256^3", k2_ms, k2_plain),
+            ("K1 dense_stream (box36)", "dense_stream", box_grid.shape,
+             k1["ms"], k1["plain"]),
+            ("K1 dense_stream (torus1024)", "dense_stream_torus1024",
+             torus_grid.shape, k1["torus_ms"], k1["torus_plain"]),
+            ("K2 coefficient pass", "band_coefs", "81,920 triangles",
+             k2t["coefs"], k2t["coefs_plain"]),
+            ("K2 band_rows tile walk", "band_rows", "256^3", k2t["walk"],
+             k2t["plain"]),
             ("K3 round (stride 1)", "vdt_round", "256^3", k3_ms, k3_plain),
             ("K4 chamfer (2 passes)", "chamfer", "256^3", k4_ms, k4_plain)):
         b, by = bounds[key]
-        print(f"[{card}] {name} at {shape}: kernel {ms:.3f} ms, "
+        print(f"[{card}] {name} at {shape}: kernel {ms:.4f} ms, "
               f"plain torch {plain:.3f} ms, bound {b:.4f} ms ({by}), "
               f"{b / ms:.1%} of the bound", flush=True)
+    k2_bound = bounds["band_coefs"][0] + bounds["band_rows"][0]
+    print(f"[{card}] K2 launches alone at 256^3 (coefficient pass + tile "
+          f"walk): {k2t['coefs'] + k2t['walk']:.4f} ms, bound "
+          f"{k2_bound:.4f} ms, {k2_bound / (k2t['coefs'] + k2t['walk']):.1%} "
+          f"of the bound; the five row fills apart {k2t['fills']:.4f} ms; "
+          f"the whole band_rows call {k2t['whole']:.4f} ms; K1 box36 cull "
+          f"evaluated {k1['evaluated_share']:.1%} of (warp, triangle) steps",
+          flush=True)
     grid_res = {g["rows"]: g for g in probe_res["grid_overhead"]}
     probe_ms = {"vpu_peak": probe_res["vpu_peak"]["ms"],
                 "vpu_peak_fma": probe_res["vpu_peak_fma"]["ms"],
@@ -1278,21 +1492,32 @@ def main():
                   ("hbm_stream", "hbm_stream", 150))
     sphere = diff["sphere82k"]
     kernels = [
-        {"name": "dense_sep", "route": "cuda",
-         "source": "sdfgenfast_tpu_torch/csrc/dense.cu",
-         "replaces": "sdfgenfast_tpu/ops/dense.py:141",
-         "launches": launches["dense_sep"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+        # one kernel for both of the JAX package's dense kernels: a row for
+        # each, at the mesh that takes it (box36: _sep_kernel, the torus at
+        # the cap: _dense_kernel), with that call's launches
         {"name": "dense_stream", "route": "cuda",
          "source": "sdfgenfast_tpu_torch/csrc/dense.cu",
+         "replaces": "sdfgenfast_tpu/ops/dense.py:141",
+         "launches": dense_launches["box36"], "max_abs_err": k1["err"],
+         "ms": k1["ms"], "plain_ms": k1["plain"]},
+        {"name": "dense_stream_torus1024", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/dense.cu",
          "replaces": "sdfgenfast_tpu/ops/dense.py:254",
-         "launches": launches["dense_stream"], "max_abs_err": k1b_err,
-         "ms": k1b_ms, "plain_ms": k1b_plain},
+         "launches": dense_launches["torus1024"],
+         "max_abs_err": k1["torus_err"], "ms": k1["torus_ms"],
+         "plain_ms": k1["torus_plain"]},
+        # K2's two launches: the coefficients the Pallas body builds per
+        # candidate (band_pallas.py:76), then the walk
+        {"name": "band_coefs", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/band_rows.cu",
+         "replaces": "sdfgenfast_tpu/ops/band_pallas.py:76",
+         "launches": launches["band_coefs"], "max_abs_err": k2["err"],
+         "ms": k2t["coefs"], "plain_ms": k2t["coefs_plain"]},
         {"name": "band_rows", "route": "cuda",
          "source": "sdfgenfast_tpu_torch/csrc/band_rows.cu",
          "replaces": "sdfgenfast_tpu/ops/band_pallas.py:76",
-         "launches": launches["band_rows"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
+         "launches": launches["band_rows"], "max_abs_err": k2["err"],
+         "ms": k2t["walk"], "plain_ms": k2t["plain"]},
         {"name": "vdt_round", "route": "cuda",
          "source": "sdfgenfast_tpu_torch/csrc/vdt_round.cu",
          "replaces": "sdfgenfast_tpu/ops/vdt_pallas.py:75",

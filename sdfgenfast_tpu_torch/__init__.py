@@ -2,8 +2,8 @@
 
 The default ``SDFConfig()`` path of the mesh -> signed-distance-field
 generator, both halves: the dense path (meshes with at most 1024 triangles,
-kernels K1 and K1b) and the binned exact path (larger meshes, kernels K2, K3
-and K4). The kernels are hand-written in CUDA for Hopper (``csrc/*.cu``,
+kernel K1) and the binned exact path (larger meshes, kernels K2, K3 and
+K4). The kernels are hand-written in CUDA for Hopper (``csrc/*.cu``,
 built on first use by ``kernels/build.py``), each with a plain-torch twin
 that runs on CPU tensors. The JAX package ``sdfgenfast_tpu`` is the
 reference it is tested against; this package imports neither it nor JAX.

@@ -42,12 +42,14 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as void*)
 _SIGNATURES = {
+    "sdf_band_coefs": [_P, _I, _P, _P],
     "sdf_band_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                       _P, _P, _P, _P, _P, _P],
     "sdf_vdt_round": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "sdf_chamfer_pass": [_P, _P, _I, _I, _I, _F, _F, _F, _P],
-    "sdf_dense_sep": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "sdf_dense_stream": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    "sdf_dense_stream_counted": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P,
+                                 _P, _P],
     "sdf_recompute_phi": [_P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _F, _P, _P],
     "sdf_recompute_vjp": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _P,
                           _P],

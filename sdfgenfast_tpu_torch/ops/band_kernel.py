@@ -8,9 +8,16 @@ cancellation-free clamped-edge differences otherwise, the same evaluation as
 ties (segments are ascending, so a strict '<' walk is first-wins), and emits
 phi, the winner id and its closest point p - dd.
 
-``band_rows`` launches the CUDA kernel (``csrc/band_rows.cu``) for CUDA
-tensors and runs ``band_rows_reference``, its plain-torch twin, for CPU
-tensors. ``band_rows.launches`` counts kernel launches.
+Every affine-in-p quantity (plane distance, barycentric weights, edge
+parameters) comes from a per-triangle (M, 40) coefficient table
+(:func:`_band_coefs`), and each is evaluated as its row half plus its lane
+half, ``(cx*x + (cy*y + c0)) + cz*z``, so that a CUDA thread computes the
+row half once for the eight cells of its row.
+
+``band_rows`` launches two CUDA kernels (``csrc/band_rows.cu``) for CUDA
+tensors, the coefficient pass (:func:`band_coefs`) and the tile walk, and
+runs ``band_rows_reference``, its plain-torch twin, for CPU tensors.
+``band_coefs.launches`` and ``band_rows.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -21,8 +28,8 @@ import torch
 from ..kernels import build
 from .vdt import FAR, sqrt_f32
 
-__all__ = ["band_csr_from_binning", "band_rows", "band_rows_reference",
-           "CHUNK"]
+__all__ = ["band_coefs", "band_csr_from_binning", "band_rows",
+           "band_rows_reference", "CHUNK"]
 
 CHUNK = 16  # CSR segment granularity (kept from the JAX package's layout)
 TILE_CELLS = 512  # 8 x 8 x 8
@@ -80,116 +87,177 @@ def _check_args(tri9, pair, ids, off, cnt):
         raise ValueError("ids, off and cnt must have one entry per tile slot")
 
 
+def _dot(x1, x2):
+    return x1[:, 0] * x2[:, 0] + x1[:, 1] * x2[:, 1] + x1[:, 2] * x2[:, 2]
+
+
+def _band_coefs(tri9):
+    """(M, 9) float32 grid-local vertices -> the (M, 40) coefficient table,
+    rows of ten 4-word groups (``csrc/band_rows.cu`` reads them as float4):
+
+      0: unit normal n, plane offset h0;  1: g23, g23c;  2: g31, g31c (the
+      barycentric weights w23, w31 as affine forms); 3-5: the edge
+      parameters of ab, ac, bc as [e, e0] (s = e.p + e0 along w = x1 - x2
+      from x2); 6-8: the edge vectors w_ab, w_ac, w_bc, then b; 9: c and the
+      degenerate flag (cross product squared <= 1e-30).
+
+    The arithmetic of ``band_coefs_kernel``, operation for operation."""
+    a, b, c = tri9[:, 0:3], tri9[:, 3:6], tri9[:, 6:9]
+
+    def edge(x1, x2):
+        w = x1 - x2
+        inv = torch.reciprocal(torch.clamp(_dot(w, w), min=1e-30))
+        return w, torch.cat([w * inv[:, None], (-_dot(x2, w) * inv)[:, None]],
+                            dim=1)
+
+    w_ab, e_ab = edge(a, b)
+    w_ac, e_ac = edge(a, c)
+    w_bc, e_bc = edge(b, c)
+    x13, x23 = a - c, b - c
+    m13, m23, d = _dot(x13, x13), _dot(x23, x23), _dot(x13, x23)
+    invdet = torch.reciprocal(torch.clamp(m13 * m23 - d * d, min=1e-30))
+    g23 = invdet[:, None] * (m23[:, None] * x13 - d[:, None] * x23)
+    g31 = invdet[:, None] * (m13[:, None] * x23 - d[:, None] * x13)
+    cr = torch.stack([x13[:, 1] * x23[:, 2] - x13[:, 2] * x23[:, 1],
+                      x13[:, 2] * x23[:, 0] - x13[:, 0] * x23[:, 2],
+                      x13[:, 0] * x23[:, 1] - x13[:, 1] * x23[:, 0]], dim=1)
+    cr2 = _dot(cr, cr)
+    n = cr * torch.rsqrt(torch.clamp(cr2, min=1e-37))[:, None]
+    degen = (cr2 <= 1e-30).to(torch.float32)
+    return torch.cat([
+        n, -_dot(n, c)[:, None], g23, -_dot(g23, c)[:, None],
+        g31, -_dot(g31, c)[:, None], e_ab, e_ac, e_bc,
+        w_ab, w_ac, w_bc, b, c, degen[:, None]], dim=1).contiguous()
+
+
+def _affine(cf, col, x, y, z):
+    """cf[col] * x + (cf[col + 1] * y + cf[col + 3]) + cf[col + 2] * z: the
+    row half, then the lane half."""
+    return (cf[:, col] * x + (cf[:, col + 1] * y + cf[:, col + 3])
+            + cf[:, col + 2] * z)
+
+
+def _band_cell(cf, x, y, z):
+    """The distance terms of rows `cf` ((A, 40) or (A, 40, 1)...) at cells
+    (x, y, z): (d2, winner's p - cp as (ddx, ddy, ddz)), evaluated as
+    ``band_rows_kernel`` does, the inside/edge choice included."""
+    h = _affine(cf, 0, x, y, z)
+    w23 = _affine(cf, 4, x, y, z)
+    w31 = _affine(cf, 8, x, y, z)
+    w12 = 1.0 - w23 - w31
+    inside = ((torch.minimum(torch.minimum(w23, w31), w12) >= 0.0)
+              & (cf[:, 39] == 0.0))
+
+    def edge(e_col, w_cols, u):
+        s = torch.clamp(_affine(cf, e_col, x, y, z), 0.0, 1.0)
+        dd = [ui - s * cf[:, wc] for ui, wc in zip(u, w_cols)]
+        return dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2], dd
+
+    ub = (x - cf[:, 33], y - cf[:, 34], z - cf[:, 35])
+    uc = (x - cf[:, 36], y - cf[:, 37], z - cf[:, 38])
+    dab, dd_ab = edge(12, (24, 25, 26), ub)
+    dac, dd_ac = edge(16, (27, 28, 29), uc)
+    dbc, dd_bc = edge(20, (30, 31, 32), uc)
+    d2 = torch.where(inside, h * h,
+                     torch.minimum(dab, torch.minimum(dac, dbc)))
+    ab_best = (dab <= dac) & (dab <= dbc)
+    ac_best = ~ab_best & (dac <= dbc)
+    dd = tuple(torch.where(inside, h * cf[:, i],
+                           torch.where(ab_best, dd_ab[i],
+                                       torch.where(ac_best, dd_ac[i],
+                                                   dd_bc[i])))
+               for i in range(3))
+    return d2, dd
+
+
+def _tile_cells(ids, tiles_dim, dx, device):
+    """(A, 512) cell positions of the tiles `ids`, cell c = i*64 + j*8 + k."""
+    _, ntj, ntk = tiles_dim
+    t = ids.to(torch.int64)
+    c = torch.arange(TILE_CELLS, device=device)
+    x = ((t // (ntk * ntj))[:, None] * 8 + c // 64).to(torch.float32) * dx
+    y = (((t // ntk) % ntj)[:, None] * 8 + (c // 8) % 8).to(torch.float32) * dx
+    z = ((t % ntk)[:, None] * 8 + c % 8).to(torch.float32) * dx
+    return x, y, z
+
+
 def band_rows_reference(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim,
                         grid_shape):
     """Plain-torch twin of :func:`band_rows`: the k-th candidate of every
     tile segment is evaluated for all 512 cells at once, k = 0, 1, ..., and
-    merged with a strict '<' — the kernel's walk, vectorized over tiles."""
+    merged with a strict '<', its closest point tracked with it — the
+    kernel's walk, vectorized over tiles."""
     dev = tri9.device
     M = tri9.shape[0]
-    nti, ntj, ntk = tiles_dim
-    T = nti * ntj * ntk
+    T = int(np.prod(tiles_dim))
     upper = _upper(grid_shape, dx)
     rows = _filled_rows(T, upper, dev)
     A = ids.shape[0]
     if A == 0:
         return rows
-
-    t = ids.to(torch.int64)
-    c = torch.arange(TILE_CELLS, device=dev)
-    x = ((t // (ntk * ntj))[:, None] * 8 + c // 64).to(torch.float32) * dx
-    y = (((t // ntk) % ntj)[:, None] * 8 + (c // 8) % 8).to(torch.float32) * dx
-    z = ((t % ntk)[:, None] * 8 + c % 8).to(torch.float32) * dx
-
+    x, y, z = _tile_cells(ids, tiles_dim, dx, dev)
     best = torch.full((A, TILE_CELLS), float("inf"), device=dev)
     best_t = torch.full((A, TILE_CELLS), -1, dtype=torch.int32, device=dev)
-    bdx = torch.zeros((A, TILE_CELLS), device=dev)
-    bdy = torch.zeros_like(bdx)
-    bdz = torch.zeros_like(bdx)
+    bd = [torch.zeros((A, TILE_CELLS), device=dev) for _ in range(3)]
 
     off64 = off.to(torch.int64)
     cnt64 = cnt.to(torch.int64)
-    table = torch.cat([tri9, torch.zeros((1, 9), dtype=tri9.dtype, device=dev)])
+    table = torch.cat([_band_coefs(tri9),
+                       torch.zeros((1, 40), dtype=tri9.dtype, device=dev)])
     P = pair.shape[0]
     for k in range(int(cnt.max()) if P else 0):
         cid = pair[(off64 + k).clamp(max=P - 1)].to(torch.int64)
         live = (k < cnt64) & (cid >= 0) & (cid < M)
-        v = table[torch.where(live, cid, M)]  # (A, 9)
-        ax, ay, az, bx, by, bz, cx, cy, cz = (v[:, i:i + 1] for i in range(9))
-
-        def edge_coef(x1x, x1y, x1z, x2x, x2y, x2z):
-            wx, wy, wz = x1x - x2x, x1y - x2y, x1z - x2z
-            m2 = wx * wx + wy * wy + wz * wz
-            inv = torch.reciprocal(torch.clamp(m2, min=1e-30))
-            e0 = -(x2x * wx + x2y * wy + x2z * wz) * inv
-            return (wx, wy, wz), (wx * inv, wy * inv, wz * inv, e0)
-
-        w_ab, e_ab = edge_coef(ax, ay, az, bx, by, bz)
-        w_ac, e_ac = edge_coef(ax, ay, az, cx, cy, cz)
-        w_bc, e_bc = edge_coef(bx, by, bz, cx, cy, cz)
-
-        x13x, x13y, x13z = ax - cx, ay - cy, az - cz
-        x23x, x23y, x23z = bx - cx, by - cy, bz - cz
-        m13 = x13x * x13x + x13y * x13y + x13z * x13z
-        m23 = x23x * x23x + x23y * x23y + x23z * x23z
-        d = x13x * x23x + x13y * x23y + x13z * x23z
-        invdet = torch.reciprocal(torch.clamp(m13 * m23 - d * d, min=1e-30))
-        g23x = invdet * (m23 * x13x - d * x23x)
-        g23y = invdet * (m23 * x13y - d * x23y)
-        g23z = invdet * (m23 * x13z - d * x23z)
-        g23c = -(g23x * cx + g23y * cy + g23z * cz)
-        g31x = invdet * (m13 * x23x - d * x13x)
-        g31y = invdet * (m13 * x23y - d * x13y)
-        g31z = invdet * (m13 * x23z - d * x13z)
-        g31c = -(g31x * cx + g31y * cy + g31z * cz)
-
-        crx = x13y * x23z - x13z * x23y
-        cry = x13z * x23x - x13x * x23z
-        crz = x13x * x23y - x13y * x23x
-        cr2 = crx * crx + cry * cry + crz * crz
-        rn = torch.rsqrt(torch.clamp(cr2, min=1e-37))
-        nx, ny, nz = crx * rn, cry * rn, crz * rn
-        h0 = -(nx * cx + ny * cy + nz * cz)
-        degen = cr2 <= 1e-30
-
-        h = nx * x + ny * y + nz * z + h0
-        w23 = g23x * x + g23y * y + g23z * z + g23c
-        w31 = g31x * x + g31y * y + g31z * z + g31c
-        w12 = 1.0 - w23 - w31
-        inside = (torch.minimum(torch.minimum(w23, w31), w12) >= 0.0) & ~degen
-
-        def edge_d2(e, w, ux, uy, uz):
-            ex, ey, ez, e0 = e
-            wx, wy, wz = w
-            s = torch.clamp(ex * x + ey * y + ez * z + e0, 0.0, 1.0)
-            ddx, ddy, ddz = ux - s * wx, uy - s * wy, uz - s * wz
-            return ddx * ddx + ddy * ddy + ddz * ddz, (ddx, ddy, ddz)
-
-        dab, dd_ab = edge_d2(e_ab, w_ab, x - bx, y - by, z - bz)
-        ucx, ucy, ucz = x - cx, y - cy, z - cz
-        dac, dd_ac = edge_d2(e_ac, w_ac, ucx, ucy, ucz)
-        dbc, dd_bc = edge_d2(e_bc, w_bc, ucx, ucy, ucz)
-        d2 = torch.where(inside, h * h,
-                         torch.minimum(dab, torch.minimum(dac, dbc)))
-        ab_best = (dab <= dac) & (dab <= dbc)
-        ac_best = ~ab_best & (dac <= dbc)
-
+        cf = table[torch.where(live, cid, M)][:, :, None]  # (A, 40, 1)
+        d2, dd = _band_cell(cf, x, y, z)
         better = live[:, None] & (d2 < best)
         best = torch.where(better, d2, best)
         best_t = torch.where(better, cid.to(torch.int32)[:, None], best_t)
-        for b, i3, nrm in ((bdx, 0, nx), (bdy, 1, ny), (bdz, 2, nz)):
-            e = torch.where(ab_best, dd_ab[i3],
-                            torch.where(ac_best, dd_ac[i3], dd_bc[i3]))
-            b.copy_(torch.where(better, torch.where(inside, h * nrm, e), b))
-
+        bd = [torch.where(better, d, b) for d, b in zip(dd, bd)]
     has = best < float(upper * upper)
-    phi_r, tid_r, cpx_r, cpy_r, cpz_r = rows
-    phi_r[t] = torch.where(has, sqrt_f32(best), float(upper))
-    tid_r[t] = torch.where(has, best_t, -1)
-    cpx_r[t] = torch.where(has, x - bdx, float(FAR))
-    cpy_r[t] = torch.where(has, y - bdy, float(FAR))
-    cpz_r[t] = torch.where(has, z - bdz, float(FAR))
+    t = ids.to(torch.int64)
+    rows[0][t] = torch.where(has, sqrt_f32(best), float(upper))
+    rows[1][t] = torch.where(has, best_t, -1)
+    for r, p, d in zip(rows[2:], (x, y, z), bd):
+        r[t] = torch.where(has, p - d, float(FAR))
     return rows
+
+
+def band_coefs(tri9):
+    """(M, 9) float32 grid-local vertices -> the (M, 40) table of
+    :func:`_band_coefs`. CUDA: one launch of the coefficient pass. CPU:
+    :func:`_band_coefs`."""
+    if tri9.dtype != torch.float32 or tri9.dim() != 2 or tri9.shape[1] != 9:
+        raise ValueError(f"tri9 must be (M, 9) float32, got "
+                         f"{tuple(tri9.shape)} {tri9.dtype}")
+    if tri9.device.type == "cpu":
+        return _band_coefs(tri9)
+    if tri9.device.type != "cuda":
+        raise ValueError(f"band_coefs: unsupported device {tri9.device}")
+    tri9 = tri9.contiguous()
+    coef = torch.empty((tri9.shape[0], 40), dtype=torch.float32,
+                       device=tri9.device)
+    with torch.cuda.device(tri9.device):
+        build.check(build.library().sdf_band_coefs(
+            tri9.data_ptr(), tri9.shape[0], coef.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "sdf_band_coefs")
+    band_coefs.launches += 1
+    return coef
+
+
+band_coefs.launches = 0
+
+
+def _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, grid_shape):
+    """One launch of the tile walk into `rows` (the kernel writes every
+    active tile's row whole)."""
+    with torch.cuda.device(coef.device):
+        build.check(build.library().sdf_band_rows(
+            coef.data_ptr(), coef.shape[0], pair.data_ptr(), ids.data_ptr(),
+            off.data_ptr(), cnt.data_ptr(), ids.shape[0], tiles_dim[1],
+            tiles_dim[2], int(sum(grid_shape)), float(dx),
+            *(r.data_ptr() for r in rows),
+            torch.cuda.current_stream().cuda_stream), "sdf_band_rows")
 
 
 def band_rows(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim, grid_shape):
@@ -200,7 +268,8 @@ def band_rows(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim, grid_shape):
     int32 linear tile ids (T for padded slots); off/cnt: (A,) int32 segment
     starts and lengths. Rows of tiles that are not active hold the
     no-candidate values (upper, -1, FAR); row T is junk.
-    CUDA: one K2 launch. CPU: :func:`band_rows_reference`.
+    CUDA: the coefficient pass and one K2 launch. CPU:
+    :func:`band_rows_reference`.
     """
     _check_args(tri9, pair, ids, off, cnt)
     if tri9.device.type == "cpu":
@@ -208,19 +277,11 @@ def band_rows(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim, grid_shape):
                                    tiles_dim=tiles_dim, grid_shape=grid_shape)
     if tri9.device.type != "cuda":
         raise ValueError(f"band_rows: unsupported device {tri9.device}")
-    tri9, pair, ids, off, cnt = (a.contiguous() for a in (tri9, pair, ids,
-                                                          off, cnt))
-    nti, ntj, ntk = tiles_dim
-    T = nti * ntj * ntk
+    pair, ids, off, cnt = (a.contiguous() for a in (pair, ids, off, cnt))
+    T = int(np.prod(tiles_dim))
     rows = _filled_rows(T, _upper(grid_shape, dx), tri9.device)
-    lib = build.library()
-    with torch.cuda.device(tri9.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        build.check(lib.sdf_band_rows(
-            tri9.data_ptr(), tri9.shape[0], pair.data_ptr(), ids.data_ptr(),
-            off.data_ptr(), cnt.data_ptr(), ids.shape[0], ntj, ntk,
-            int(sum(grid_shape)), float(dx),
-            *(r.data_ptr() for r in rows), stream), "sdf_band_rows")
+    coef = band_coefs(tri9)
+    _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, grid_shape)
     band_rows.launches += 1
     return rows
 

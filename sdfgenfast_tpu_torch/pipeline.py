@@ -8,7 +8,7 @@ Counterpart of ``sdfgenfast_tpu/pipeline.py`` for the default
 Dense path (at most ``dense_max_tris`` triangles, :func:`dense_sign_core`):
 
   1. host: the x-ray parity (crossings or bit-packed), no band binning;
-  2. device: vertex gather -> K1 (<= 384 triangles) or K1b (<= 1024): the
+  2. device: vertex gather -> K1 (one kernel up to 1024 triangles): the
      exact distance of every cell to every triangle -> sign from the parity.
 
 Binned exact path (:func:`exact_core`):
@@ -254,7 +254,7 @@ def _parity_device(parity_data, ni):
 def dense_sign_core(verts, tris, parity_data, origin, dx: float, *,
                     grid_shape):
     """The dense path on device tensors (``sdfgenfast_tpu.pipeline.
-    _dense_sign_core``): vertex gather -> K1 / K1b -> sign from the parity.
+    _dense_sign_core``): vertex gather -> K1 -> sign from the parity.
 
     verts (N, 3) f32, tris (M, 3) int32, parity_data (uint8 packed or int16
     crossings), origin (3,) f32, all on one device; dx a float32-

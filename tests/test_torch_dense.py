@@ -1,5 +1,5 @@
-"""The PyTorch port's dense path (kernels K1 and K1b: their plain twins on
-the CPU) against the JAX package, the float64 oracle and the reference
+"""The PyTorch port's dense path (kernel K1: its plain twin on the CPU)
+against the JAX package, the float64 oracle and the reference
 binary's box goldens, plus the batch API.
 
 The JAX side runs ``sdfgenfast_tpu.ops.dense.dense_distance_field`` in
@@ -28,6 +28,7 @@ from sdfgenfast_tpu_torch import pipeline as ppipe
 from sdfgenfast_tpu_torch.io import mesh_io, sdf_io
 from sdfgenfast_tpu_torch.ops import dense as pdense
 from sdfgenfast_tpu_torch.ops import geometry as pgeom
+from sdfgenfast_tpu_torch.ops.vdt import sqrt_f32
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from oracle import brute_force_sdf, point_triangle_distance_np  # noqa: E402
@@ -157,7 +158,7 @@ def _case(name):
                              [0.8, 0.5, 0.5]]], np.float32), (0, 0, 0), 0.1,
                 (10, 10, 10), None, None)
     m = _ico3()
-    if name == "ico3_512":  # K1b
+    if name == "ico3_512":  # a streamed table
         return (_tri_verts(m, m.tris[:512]), (-1.2, -1.15, -1.1), 0.24,
                 (9, 10, 11), None, (2e-5, 2e-6))
     raise KeyError(name)
@@ -200,18 +201,19 @@ def test_degenerate_triangle_values():
     np.testing.assert_allclose(float(phi[5, 5, 8]), 0.3, rtol=1e-5)
 
 
-@pytest.mark.parametrize("m,kernel", [(384, "sep"), (385, "stream"),
+@pytest.mark.parametrize("m,kernel", [(384, "stream"), (385, "stream"),
                                       (1024, "stream")])
 def test_gate_selects_kernel_and_matches_jax(m, kernel, monkeypatch):
+    """One dense kernel on both sides of the JAX package's 384-triangle
+    gate and at the cap."""
     mesh = _ico3()
     tv = _tri_verts(mesh, mesh.tris[:m])
     origin, dx, gs = (-1.2, -1.15, -1.1), 0.5, (5, 6, 7)
     called = []
-    for name in ("sep", "stream"):
-        fn = getattr(pdense, f"dense_{name}")
-        monkeypatch.setattr(
-            pdense, f"dense_{name}",
-            lambda *a, _fn=fn, _n=name, **k: called.append(_n) or _fn(*a, **k))
+    fn = pdense.dense_stream
+    monkeypatch.setattr(
+        pdense, "dense_stream",
+        lambda *a, **k: called.append("stream") or fn(*a, **k))
     pj, tj, pp, tp = _both(tv, origin, dx, gs)
     assert called == [kernel]
     np.testing.assert_allclose(pp, pj, rtol=RTOL, atol=ATOL)
@@ -229,31 +231,29 @@ def test_gate_rejects_above_cap():
 
 
 def test_twins_agree_on_one_mesh():
-    """K1's and K1b's wrappers compute one field: on CPU tensors both are
-    dense_sep_reference, bit for bit, and the separable formulation agrees
-    with the per-triangle point-triangle distance (the formulation of the
-    JAX package's _dense_kernel) to the JAX bar."""
+    """K1's wrapper on CPU tensors is dense_sep_reference, bit for bit, and
+    the separable formulation agrees with the per-triangle point-triangle
+    distance (the formulation of the JAX package's _dense_kernel) to the
+    JAX bar."""
     mesh = _ico3()
     tl = torch.from_numpy(_tri_verts(mesh, mesh.tris[:200])
                           - np.float32([-1.2, -1.15, -1.1]))
     kw = dict(grid_shape=(7, 8, 9), ijk_offset=(1, 0, 2))
     coef = pdense._sep_coefs(tl)
-    ps, ts = pdense.dense_sep(coef, 0.3, **kw)
     pr, tr = pdense.dense_sep_reference(coef, 0.3, **kw)
-    po, to = pdense.dense_stream(coef, 0.3, **kw)
+    ps, ts = pdense.dense_stream(coef, 0.3, **kw)
     assert torch.equal(ps, pr) and torch.equal(ts, tr)
-    assert torch.equal(po, pr) and torch.equal(to, tr)
     p = pdense._cell_axes(kw["grid_shape"], 0.3, kw["ijk_offset"], CPU)
     d2 = torch.stack([pgeom.point_triangle_distance_sq_soa(
         p, *(tuple(tl[t, v]) for v in range(3))) for t in range(len(tl))])
     np.testing.assert_allclose(ps.numpy(), np.sqrt(d2.min(0).values.numpy()),
                                rtol=RTOL, atol=ATOL)
-    assert pdense.dense_sep.launches == pdense.dense_stream.launches == 0
+    assert pdense.dense_stream.launches == 0
 
 
 def test_stream_range_matches_jax_dense_kernel():
-    """The port's dense path at 1024 triangles (K1b's range: the separable
-    table, dense_stream's twin on the CPU) against the JAX package's
+    """The port's dense path at 1024 triangles (a streamed table: the
+    separable formulation, dense_stream's twin on the CPU) against the JAX package's
     _dense_impl, which takes its per-triangle _dense_kernel there (Pallas
     interpret mode), on the torus the smoke runs, on a grid away from the
     origin with an index offset."""
@@ -445,3 +445,126 @@ def test_generate_sdf_batch_errors():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             P.generate_sdf_batch(ok, *args)
+
+
+# -- K1's warp tiles and starting bound (csrc/dense.cu), transcribed ---------
+
+CELLS, WARP_J, WARP_K, CENTRE = 4, 8, 16, 18  # dense.cu: kCells, kWarpJ, ...
+
+
+def _kernel_field(coef, dx, grid_shape, ijk_offset):
+    """dense_stream_kernel's walk on the CPU, vectorized over warps: warp
+    tile (i, jt, kt) owns columns j = jt*8 + lane // 4 and cells k = kt*16 +
+    (lane % 4)*4 + c, clamped copies past the grid's end; each warp finds
+    the triangle nearest its centre cell (lane 18's first cell; lowest id
+    among ties), starts every cell one ulp above that triangle's distance
+    with that triangle as its winner, walks the triangles in ascending
+    order, skipping one for the whole warp when no cell's h^2 is within its
+    best (degenerate ones never), merges with a strict '<', and keeps the
+    start's distance where nothing fell below it. Returns (phi, tid) and
+    the share of (warp, triangle) steps evaluated."""
+    ni, nj, nk = grid_shape
+    oi, oj, ok = ijk_offset
+    m = coef.shape[1]
+    i, jt, kt = torch.meshgrid(
+        torch.arange(ni), torch.arange(-(-nj // WARP_J)),
+        torch.arange(-(-nk // WARP_K)), indexing="ij")
+    i, jt, kt = (v.reshape(-1, 1) for v in (i, jt, kt))  # (W, 1)
+    cell = torch.arange(32 * CELLS)
+    lane, c = cell // CELLS, cell % CELLS
+    j = jt * WARP_J + lane // (WARP_K // CELLS)            # (W, 128)
+    k = kt * WARP_K + (lane % (WARP_K // CELLS)) * CELLS + c
+    x = ((i + oi).to(torch.float32) * dx).expand_as(j)
+    y = (j.clamp(max=nj - 1) + oj).to(torch.float32) * dx
+    z = (k.clamp(max=nk - 1) + ok).to(torch.float32) * dx
+    centre = CENTRE * CELLS
+
+    def d2_at(t, x, y, z):
+        """din and d2 of the triangles t at the cells, as the twin has them."""
+        cf = coef[:, t]
+        h = (cf[27] * x + (cf[28] * y + cf[30])) + cf[29] * z
+        w23u = cf[31] * x + (cf[32] * y + cf[34])
+        w31u = cf[35] * x + (cf[36] * y + cf[38])
+        w23v, w31v = cf[33] * z, cf[37] * z
+        inside = (torch.minimum(torch.minimum(w23u + w23v, w31u + w31v),
+                                (1.0 - w23u - w31u) + -(w23v + w31v)) >= 0.0
+                  ) & (cf[39] < 0.5)
+
+        def edge(col, w0, ux, uy, uz):
+            s = torch.clamp((cf[col] * x + (cf[col + 1] * y + cf[col + 3]))
+                            + cf[col + 2] * z, 0.0, 1.0)
+            dd = (ux - s * cf[w0], uy - s * cf[w0 + 1], uz - s * cf[w0 + 2])
+            return dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
+
+        ub = (x - cf[0], y - cf[1], z - cf[2])
+        uc = (x - cf[3], y - cf[4], z - cf[5])
+        dmin = torch.minimum(edge(15, 6, *ub), torch.minimum(
+            edge(19, 9, *uc), edge(23, 12, *uc)))
+        return h * h, torch.where(inside, h * h, dmin)
+
+    # the nearest triangle at each warp's centre cell
+    tri = torch.arange(m)
+    _, dc = d2_at(tri[None, :], x[:, centre:centre + 1],
+                  y[:, centre:centre + 1], z[:, centre:centre + 1])
+    tmin = torch.argmin(dc, dim=1)  # the first index at the minimum
+    assert torch.equal(dc[torch.arange(len(tmin)), tmin], dc.min(dim=1).values)
+    _, bound = d2_at(tmin[:, None], x, y, z)
+    best = torch.nextafter(bound, torch.tensor(float("inf")))
+    best_t = tmin[:, None].expand_as(best).to(torch.int32).clone()
+    evaluated = 0
+    for t in range(m):
+        din, d2 = d2_at(t, x, y, z)
+        run = (din <= best).any(dim=1) | bool(coef[39, t] >= 0.5)
+        evaluated += int(run.sum())
+        better = run[:, None] & (d2 < best)
+        best = torch.where(better, d2, best)
+        best_t = torch.where(better, t, best_t)
+    best = torch.where(best > bound, bound, best)
+    phi = torch.full(grid_shape, float("nan"))
+    tid = torch.full(grid_shape, -7, dtype=torch.int32)
+    store = (j < nj) & (k < nk)
+    at = (i.expand_as(j)[store], j[store], k[store])
+    phi[at] = sqrt_f32(best[store])
+    tid[at] = best_t[store]
+    return phi, tid, evaluated / (len(tmin) * m)
+
+
+
+@pytest.mark.parametrize("case", ["box36", "ico3_200", "ico3_385", "degen"])
+def test_kernel_walk_matches_twin(case):
+    """The transcription of dense_stream_kernel's warp tiles, nearest-
+    triangle start and culled walk (_kernel_field) writes every cell once
+    and equals dense_sep_reference, ids included (ties keep the lowest id
+    from a start that is not the lowest): on the 36-triangle box, whose
+    coplanar triangles tie exactly on grid planes, on 200 and 385
+    triangles (two and four 128-triangle chunks on the card; the
+    transcription does not model the staging) on ragged grids with an index
+    offset, and on zero-area triangles; its cull skips steps on every real
+    mesh."""
+    if case == "box36":
+        box = P.box_mesh((3, 4, 5), (-1, -1, -1))
+        cent = box.verts[box.tris].mean(axis=1).astype(np.float32)
+        nv = len(box.verts)
+        tris = [(a, b, nv + n) for n, (a0, b0, c0) in enumerate(box.tris)
+                for a, b in ((a0, b0), (b0, c0), (c0, a0))]
+        tv = np.concatenate([box.verts, cent])[np.asarray(tris)]
+        origin, dx, gs, off = (-1.27,) * 3, 0.25, (14, 19, 23), (0, 0, 0)
+    elif case == "degen":
+        v = np.asarray([[0.5, 0.5, 0.5], [0.2, 0.3, 0.4], [0.9, 0.3, 0.4],
+                        [0.1, 0.9, 0.2], [0.8, 0.7, 0.9]], np.float32)
+        tv = v[np.asarray([[0, 0, 0], [1, 2, 2], [1, 3, 4]])]
+        origin, dx, gs, off = (0, 0, 0), 0.05, (13, 20, 31), (0, 0, 0)
+    else:
+        mesh = _ico3()
+        tv = _tri_verts(mesh, mesh.tris[:int(case[5:])])
+        origin, dx, gs, off = (-1.2, -1.15, -1.1), 0.21, (7, 11, 19), (2, 1, 3)
+    coef = pdense._sep_coefs(torch.from_numpy(
+        np.ascontiguousarray(tv, np.float32) - np.float32(origin)))
+    want_phi, want_tid = pdense.dense_sep_reference(coef, dx, grid_shape=gs,
+                                                    ijk_offset=off)
+    phi, tid, share = _kernel_field(coef, dx, gs, off)
+    np.testing.assert_array_equal(phi.numpy().view(np.int32),
+                                  want_phi.numpy().view(np.int32))
+    np.testing.assert_array_equal(tid.numpy(), want_tid.numpy())
+    # two of the three zero-area case's triangles are never skipped
+    assert share < (1.0 if case != "degen" else 1.01)
