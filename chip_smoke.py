@@ -11,7 +11,8 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      main path gives it (K1 the dense kernel, with the share of pairs its
      cull evaluates; K2 band rows and their coefficient pass, on the main
      path's CSR and on hand-made segments; K3 jump-flood round, K4 chamfer,
-     the probes P1-P4; R1/R1b in phase 4d);
+     R1b on both sides of its M = 1024 dispatch, the probes P1-P4; R1/R1b
+     on the step's own fields in phase 4d);
   4. the main path, both halves. Binned: ``generate_from_file`` on the
      81,920-triangle sphere at 256^3 and 512^3, held against the reference
      binary's sparse goldens (bars of tests/test_parity_golden.py). Dense:
@@ -145,7 +146,21 @@ OPS_BAND_COEF = 150
 OPS_VDT_DONOR = 9
 OPS_CHAMFER_OFFSET = 2
 OPS_R1_CELL = 110
-OPS_R1B_CELL = 330
+# R1b: the operations the function needs on each path of a cell, each
+# value taken once (cell_vjp computes more: all three segment distances, and
+# plane_vjp / seg_vjp compute their forward values again). Every cell with a
+# gradient: its position (6), triangle_case's weights and inside test (52),
+# the parity's sign, sqrt(max(d2, 1e-30)) and the gradient of d2 (7). A
+# plane-case cell adds p - projection and its d2 (23) and plane_vjp's
+# reverse steps (136); an outside cell the case's two compares, its two
+# candidate segment distances (2 x 38) and the minimum with its backward
+# (5), and for each segment it differentiates (one, two at a tie) seg_vjp's
+# reverse steps (68). A plane-case cell is 224, a one-edge cell 216; the
+# bound counts this run's cells on each path (r1b_paths).
+OPS_R1B_CELL = 65
+OPS_R1B_PLANE = 159
+OPS_R1B_EDGES = 83
+OPS_R1B_SEG = 68
 
 
 def bound_ms(ops, nbytes):
@@ -461,18 +476,6 @@ def check_dense(torch, device, label, kernel, twin, table, tris, dx,
     return err
 
 
-def box36(Mesh, box_mesh):
-    """The reference's 36-triangle benchmark box (bench.py): the 3x4x5 box
-    with each face triangle split 1->3 at its centroid."""
-    m = box_mesh((3, 4, 5), (-1, -1, -1))
-    cent = m.verts[m.tris].mean(axis=1).astype(np.float32)
-    nv = len(m.verts)
-    tris = []
-    for i, (a, b, c) in enumerate(m.tris):
-        tris += [(a, b, nv + i), (b, c, nv + i), (c, a, nv + i)]
-    return Mesh(np.concatenate([m.verts, cent]), np.asarray(tris, np.uint32))
-
-
 def k1_counted(torch, table, dx, grid_shape):
     """K1's counting build (sdf_dense_stream_counted: the same walk, which
     also counts the (warp, triangle) steps the cull does not skip). Not a
@@ -747,8 +750,8 @@ def check_golden(phi, golden_path, far_key, stride, grid):
 
 
 def kernel_name(mangled):
-    """A kernel's name (with its bool template arguments) from its mangled
-    symbol: the length-prefixed identifier that ends in ``_kernel``."""
+    """A kernel's name (with its bool and unsigned template arguments) from
+    its mangled symbol: the length-prefixed identifier that ends in ``_kernel``."""
     # the innermost name is the last one; a hash's digits may precede its
     # length, so every suffix of a run of digits is tried
     for m in reversed(list(re.finditer(r"\d+", mangled))):
@@ -756,12 +759,14 @@ def kernel_name(mangled):
             n = int(m.group(0)[k:])
             name = mangled[m.end():m.end() + n]
             if len(name) == n and name.endswith("_kernel"):
-                t = re.match(r"I((?:Lb[01]E)+)E", mangled[m.end() + n:])
+                t = re.match(r"I((?:Lb[01]E|j|y)+)E", mangled[m.end() + n:])
                 if t is None:
                     return name
+                names = {"Lb1E": "true", "Lb0E": "false", "j": "unsigned",
+                         "y": "unsigned long long"}
                 return name + "<" + ", ".join(
-                    "true" if b == "1" else "false"
-                    for b in re.findall(r"Lb([01])E", t.group(1))) + ">"
+                    names[a] for a in re.findall(r"Lb[01]E|j|y",
+                                                 t.group(1))) + ">"
     return mangled
 
 
@@ -815,6 +820,19 @@ def sass_counts(text):
     return counts
 
 
+FP32_OPS = re.compile(r"^(@!?U?P[T\d]+\s+)?(FFMA|FMUL|FADD|FMNMX|FSETP|FSEL|"
+                      r"FSET|FCHK|MUFU)\b")
+
+
+def sass_fp32(text, pattern):
+    """{kernel: FP32 arithmetic/compare/select instructions in its SASS}
+    for every kernel matching `pattern` (each instruction once, whatever
+    path runs it)."""
+    return {name: sum(bool(FP32_OPS.search(op)) for _, op in ins)
+            for name, (ins, _) in sass_functions(text).items()
+            if re.search(pattern, name)}
+
+
 def sass_inner_loops(text, pattern=r"dense_stream|band_rows"):
     """For each kernel matching `pattern`, its innermost loop (a backward
     branch's span that holds no other) with the most FP32 instructions:
@@ -822,8 +840,7 @@ def sass_inner_loops(text, pattern=r"dense_stream|band_rows"):
     instructions). The walks load a candidate's ten float4 with ten LDS, so
     LDS / 10 is the candidates per trip of an unrolled loop."""
     out = {}
-    fp = re.compile(r"^(@!?U?P[T\d]+\s+)?(FFMA|FMUL|FADD|FMNMX|FSETP|FSEL|"
-                    r"FSET|FCHK|MUFU)\b")
+    fp = FP32_OPS
     for name, (ins, labels) in sass_functions(text).items():
         if not re.search(pattern, name):
             continue
@@ -938,6 +955,190 @@ def check_probes(torch, device):
           "and P4 held at the tool's shapes (P1 fma within 1 ulp, the rest "
           "bit-equal, non-finite values included)", flush=True)
     return out
+
+
+def r1b_paths(torch, tv, tid, gphi, origin, dx, chunk=1 << 22):
+    """This run's cells on each path of R1b's cell_vjp: (cells with a
+    gradient (tid >= 0, grad_phi != 0), of them in the plane case, seg_vjp
+    calls: one per outside cell, two at a tie of its two edges). Weights
+    and segment distances in the kernel's float32 order (geometry.cuh)."""
+    from sdfgenfast_tpu_torch.ops import recompute as rc
+    from sdfgenfast_tpu_torch.ops.geometry import gather_tri9
+
+    def d3(u, v):
+        return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+
+    def seg(p, x1, x2):
+        dv = [x2[i] - x1[i] for i in range(3)]
+        t = d3([x2[i] - p[i] for i in range(3)], dv) / torch.clamp(
+            d3(dv, dv), min=1e-30)
+        t = torch.clamp(t, 0.0, 1.0)
+        dd = [p[i] - (t * x1[i] + (1.0 - t) * x2[i]) for i in range(3)]
+        return d3(dd, dd)
+
+    tri9 = tv.reshape(-1, 9).T
+    ft, fg = tid.reshape(-1), gphi.reshape(-1)
+    cells = inside = segs = 0
+    for s in range(0, ft.numel(), chunk):
+        n = min(chunk, ft.numel() - s)
+        t = ft[s:s + n]
+        live = (t >= 0) & (fg[s:s + n] != 0)
+        p = rc._cell_positions(s, n, tid.shape, origin, dx, tid.device)
+        a, b, c = gather_tri9(tri9, t)
+        x13 = [a[i] - c[i] for i in range(3)]
+        x23 = [b[i] - c[i] for i in range(3)]
+        x03 = [p[i] - c[i] for i in range(3)]
+        m13, m23, d = d3(x13, x13), d3(x23, x23), d3(x13, x23)
+        inv = 1.0 / torch.clamp(m13 * m23 - d * d, min=1e-30)
+        pa, pb = d3(x13, x03), d3(x23, x03)
+        w23 = inv * (m23 * pa - d * pb)
+        w31 = inv * (m13 * pb - d * pa)
+        ins = (w23 >= 0) & (w31 >= 0) & (1.0 - w23 - w31 >= 0)
+        d12, d13, d23 = seg(p, a, b), seg(p, a, c), seg(p, b, c)
+        dp = torch.where(w23 > 0, d12, torch.where(w31 > 0, d12, d13))
+        dq = torch.where(w23 > 0, d13, d23)
+        out = live & ~ins
+        cells += int(live.sum())
+        inside += int((live & ins).sum())
+        segs += int(out.sum()) + int((out & (dp == dq)).sum())
+    return cells, inside, segs
+
+
+def r1b_bound(paths, m, n):
+    """R1b's bound at this run's paths: the triangles read and the (M, 9)
+    float32 gradient written, 9 B per cell (tid, parity, grad_phi)."""
+    cells, inside, segs = paths
+    ops = (cells * OPS_R1B_CELL + inside * OPS_R1B_PLANE
+           + (cells - inside) * OPS_R1B_EDGES + segs * OPS_R1B_SEG)
+    return bound_ms(ops, 72 * m + 9 * n)
+
+
+def r1b_inputs(torch, device, mesh, origin, dx, shape, rng, holes=False):
+    """recompute_backward's arguments on `mesh` over the grid (origin, dx,
+    shape): ids from the dense twin (dense_sep_reference), grad_phi and
+    parity from `rng`; with `holes`, tid = -1 and grad_phi = 0 cells
+    scattered and in stretches. Uses only entry points that older versions
+    of the package have too."""
+    from sdfgenfast_tpu_torch.ops import dense
+
+    origin = tuple(float(o) for o in np.asarray(origin, np.float32))
+    dx = float(np.float32(dx))
+    tv = tri_local(torch, device, mesh, (0, 0, 0))
+    local = tv - torch.tensor(origin, device=device)
+    _, tid = dense.dense_sep_reference(dense._sep_coefs(local), dx,
+                                       grid_shape=tuple(shape))
+    n = tid.numel()
+    gphi = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device)
+    parity = torch.from_numpy(rng.random(shape) < 0.5).to(device)
+    if holes:
+        ft, fg = tid.view(-1), gphi.view(-1)
+        ft[torch.from_numpy(rng.random(n) < 0.02).to(device)] = -1
+        ft[1000:1100] = -1
+        fg[torch.from_numpy(rng.random(n) < 0.05).to(device)] = 0.0
+        fg[5000:5200] = 0.0
+    upper = float(np.float32(sum(shape)) * np.float32(dx))
+    return tv, tid, parity, gphi, origin, dx, upper
+
+
+def r1b_tori():
+    """(label, mesh, grid) of the dense meshes of 512 and 1024 triangles,
+    torus_mesh(16, 16) and torus_mesh(32, 16), at their 256-class grid
+    (sizing_python_api, nx = 254)."""
+    from sdfgenfast_tpu_torch.grid import sizing_python_api
+    from sdfgenfast_tpu_torch.mesh import torus_mesh
+
+    return [(label, m, sizing_python_api(*m.bounds(), nx=254))
+            for label, m in (("torus512", torus_mesh(16, 16)),
+                             ("torus1024", torus_mesh(32, 16)))]
+
+
+def r1b_dense_times(meshes=None, reps=10):
+    """R1b alone (``recompute_backward``, CUDA events, the mean of `reps`
+    calls) on r1b_inputs with seed 0 for each (label, mesh, grid) of
+    `meshes`, by default r1b_tori(). Beside it, each kernel's mean device
+    time over its launches in `reps` more calls under torch.profiler (the
+    count traced is printed: the tracer may drop some). Uses only
+    entry points that older versions of the package have too, so it times
+    whichever package is first on the path; from another checkout's root:
+    ``python3 -c "import runpy; runpy.run_path('<this file>')
+    ['r1b_dense_times']()"``. Prints one line per mesh."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdfgenfast_tpu_torch.ops import recompute as rc
+
+    device = torch.device("cuda", 0)
+    if meshes is None:
+        meshes = r1b_tori()
+    for label, mesh, grid in meshes:
+        args = r1b_inputs(torch, device, mesh, grid.origin, grid.dx,
+                          grid.shape, np.random.default_rng(0))
+        ms = cuda_ms(torch, lambda: rc.recompute_backward(*args), reps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                rc.recompute_backward(*args)
+            torch.cuda.synchronize()
+        split = []  # the mean of each kernel's traced launches
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0)
+            if t and "vjp" in e.key:  # a demangled signature
+                name = re.sub(r"\(.*", "", e.key.split("::")[-1])
+                split.append(f"{name} {t / e.count / 1e3:.4f} ms "
+                             f"({e.count} traced)")
+        print(f"R1b {label} ({len(mesh.tris)} triangles, {grid.shape}): "
+              f"{ms:.4f} ms; per launch: {', '.join(split) or 'not traced'}",
+              flush=True)
+
+
+def check_r1b_cases(torch, device, box, torus, torus_grid):
+    """R1b on both sides of its dispatch, against its twin (1e-4 of the
+    largest vertex gradient) and run twice bit for bit: torus1024 on its
+    256-class grid (M = 1024, the fixed-order sum at the cap), 1025
+    triangles of icosphere(3) on a ragged grid (the atomic side), and box36
+    on a ragged grid with tid = -1 and grad_phi = 0 cells (r1b_inputs);
+    every grid's n is not a multiple of its span. Returns the largest error
+    relative to the scale."""
+    from sdfgenfast_tpu_torch.mesh import Mesh, icosphere
+    from sdfgenfast_tpu_torch.ops import recompute as rc
+
+    rng = np.random.default_rng(7)
+    ico = icosphere(3, radius=1.0, center=(0.02, -0.01, 0.03))
+    cases = (("torus1024", torus, torus_grid.origin, torus_grid.dx,
+              torus_grid.shape, False),
+             ("icosphere(3)[:1025]", Mesh(ico.verts, ico.tris[:1025]),
+              (-1.2, -1.15, -1.1), 0.04, (61, 67, 53), False),
+             ("box36 ragged, holes", box, (-2.6, -3.1, -3.55), 0.09,
+              (61, 73, 91), True))
+    worst = 0.0
+    for label, mesh, origin, dx, shape, holes in cases:
+        args = r1b_inputs(torch, device, mesh, origin, dx, shape, rng, holes)
+        tv, tid = args[:2]
+        n = tid.numel()
+        ranges, span = rc.vjp_ranges(n, len(mesh.tris))
+        if n % span == 0:
+            raise AssertionError(f"R1b {label}: n is a multiple of the span")
+        g1 = rc.recompute_backward(*args)
+        g2 = rc.recompute_backward(*args)
+        gt = rc.recompute_backward_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(bits(torch, g1), bits(torch, g2)):
+            raise AssertionError(f"R1b {label}: two runs differ")
+        tris = torch.from_numpy(mesh.tris.astype(np.int64)).to(device)
+        gv, gvt = (vertex_grad(torch, tris, g, len(mesh.verts))
+                   for g in (g1, gt))
+        scale = float(gvt.abs().max())
+        err = float((gv - gvt).abs().max())
+        if not (scale > 0 and err <= 1e-4 * scale):
+            raise AssertionError(f"R1b {label}: max err {err:.3e} vs 1e-4 * "
+                                 f"{scale:.3e}")
+        worst = max(worst, err / scale)
+        side = ("fixed order" if len(mesh.tris) <= rc.VJP_ROWS_MAX_TRIS
+                else "atomic")
+        print(f"R1b {label} ({side}, M={len(mesh.tris)}, {shape}, {ranges} "
+              f"ranges of {span} cells): vertex gradient max|err| "
+              f"{err / scale:.2e} of max|g|, two runs bit-equal", flush=True)
+    return worst
 
 
 def vertex_grad(torch, tris, g_tri, n_verts):
@@ -1145,9 +1346,10 @@ def main():
                                            sizing_python_api)
     from sdfgenfast_tpu_torch.io import native
     from sdfgenfast_tpu_torch.kernels import build
-    from sdfgenfast_tpu_torch.mesh import Mesh, box_mesh, torus_mesh
+    from sdfgenfast_tpu_torch.mesh import Mesh, torus_mesh
     from sdfgenfast_tpu_torch.ops import band_kernel, dense, recompute, vdt_kernel
     from sdfgenfast_tpu_torch.tools import micro_bench as mb
+    from sdfgenfast_tpu_torch.testing import box36
     from sdfgenfast_tpu_torch.pipeline import bin_mesh, make_level_set3
 
     # -- 1. the card ---------------------------------------------------------
@@ -1189,7 +1391,7 @@ def main():
         grids[n] = (Mesh(v, t), sizing_python_api(
             np.asarray(bounds[0], np.float32),
             np.asarray(bounds[1], np.float32), nx=n - 2))
-    box = box36(Mesh, box_mesh)
+    box = box36()
     box_grid = sizing_mode2a_proportional(*box.bounds(), 256, 1)
     torus = torus_mesh(32, 16)  # 1024 triangles: K1's streamed table
     torus_grid = sizing_python_api(*torus.bounds(), nx=254)
@@ -1199,6 +1401,7 @@ def main():
     k2 = check_k2(torch, device, *grids[256])
     k3_err = check_k3(torch, device)
     k4_err, k4_ms, k4_plain = check_k4(torch, device, grids[256][1].shape)
+    check_r1b_cases(torch, device, box, torus, torus_grid)
     probe_err = check_probes(torch, device)
 
     # -- 4a. the binned path against the reference binary's goldens --------
@@ -1295,6 +1498,28 @@ def main():
             print(f"  SASS {name} inner loop: " + (
                 "none found" if c is None else
                 f"{c[0]} instructions, {c[1]} FP32, {c[2]} LDS"), flush=True)
+        # R1b's SASS beside the bound's count: the code computes each path
+        # in full (recomputations included, divisions and sqrt expanded),
+        # the bound only what each path needs
+        for name, c in sorted(sass_fp32(sass, r"recompute_vjp").items()):
+            print(f"  SASS {name}: {c} FP32 instructions; the bound's "
+                  f"operations per cell: {OPS_R1B_CELL} + {OPS_R1B_PLANE} "
+                  f"(plane case) or {OPS_R1B_EDGES} + {OPS_R1B_SEG} per "
+                  f"segment (outside)", flush=True)
+        # the fixed-order side (kRows = true) holds no atomic instruction;
+        # the atomic side does
+        for name, (ins, _) in sorted(sass_functions(sass).items()):
+            if not name.startswith("recompute_vjp_kernel"):
+                continue
+            atomics = sum(bool(re.search(r"\b(RED|REDG|ATOM|ATOMG)\.", op))
+                          for _, op in ins)
+            print(f"  SASS {name}: {atomics} global atomic instructions",
+                  flush=True)
+            if (atomics > 0) != name.endswith("false>"):
+                ops = sorted({op.split()[0] for _, op in ins
+                              if not op.startswith("@")})
+                raise AssertionError(f"{name}: {atomics} global atomic "
+                                     f"instructions; mnemonics {ops}")
 
     # -- 4d. the differentiable path: SDFGenerator.train_step, both halves --
     diff_counters = (band_kernel.band_coefs, band_kernel.band_rows,
@@ -1328,6 +1553,10 @@ def main():
     # -- 5. timings ---------------------------------------------------------
     diff_times = {label: time_differentiable(torch, r, card, label)
                   for label, r in diff.items()}
+    r1b_dense_times([("box36", box, box_grid)] + r1b_tori())
+    r1b_work = {label: r1b_paths(torch, r["tv"], r["tid"], r["gphi"],
+                                 *r["args"][:2])
+                for label, r in diff.items()}
     # keep the numbers only: the breakdowns below read peak device memory
     diff = {label: {k: r[k] for k in ("launches", "r1_err", "r1b_err")}
             for label, r in diff.items()}
@@ -1421,9 +1650,22 @@ def main():
         "chamfer": bound_ms(2 * n_256 * 26 * OPS_CHAMFER_OFFSET, 2 * 8 * n_256),
         "recompute_phi": bound_ms(OPS_R1_CELL * n_256,
                                   36 * m_sphere + 9 * n_256),
-        "recompute_vjp": bound_ms(OPS_R1B_CELL * n_256,
-                                  72 * m_sphere + 9 * n_256),
+        "recompute_vjp": r1b_bound(r1b_work["sphere82k"], m_sphere, n_256),
+        "recompute_phi_box36": bound_ms(OPS_R1_CELL * n_box,
+                                        36 * len(box.tris) + 9 * n_box),
+        "recompute_vjp_box36": r1b_bound(r1b_work["box36"], len(box.tris),
+                                         n_box),
     }
+    for label, key in (("sphere82k", ""), ("box36", "_box36")):
+        cells, inside, segs = r1b_work[label]
+        t = diff_times[label]
+        print(f"[{card}] R1/R1b {label}: R1 {t['r1']:.4f} ms, bound "
+              f"{bounds['recompute_phi' + key][0]:.4f} ms "
+              f"({bounds['recompute_phi' + key][1]}); R1b {t['r1b']:.4f} ms, "
+              f"bound {bounds['recompute_vjp' + key][0]:.4f} ms "
+              f"({bounds['recompute_vjp' + key][1]}) at {cells} cells with a "
+              f"gradient, {inside} in the plane case, {segs} segment "
+              f"backward passes", flush=True)
     n_vpu, n_hbm = int(np.prod(mb.VPU_SHAPE)), int(np.prod(mb.HBM_SHAPE))
     bounds.update(
         vpu_peak=bound_ms(n_vpu * mb.PEAK_CHAIN * 4, 8 * n_vpu),
@@ -1554,6 +1796,20 @@ def main():
          "max_abs_err": sphere["r1b_err"],
          "ms": diff_times["sphere82k"]["r1b"],
          "plain_ms": diff_times["sphere82k"]["r1b_twin"]},
+        {"name": "recompute_phi_box36", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/recompute.cu",
+         "replaces": "sdfgenfast_tpu/pipeline.py:341",
+         "launches": diff["box36"]["launches"]["recompute_forward"],
+         "max_abs_err": diff["box36"]["r1_err"],
+         "ms": diff_times["box36"]["r1"],
+         "plain_ms": diff_times["box36"]["r1_twin"]},
+        {"name": "recompute_vjp_box36", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/recompute.cu",
+         "replaces": "sdfgenfast_tpu/pipeline.py:341",
+         "launches": diff["box36"]["launches"]["recompute_backward"],
+         "max_abs_err": diff["box36"]["r1b_err"],
+         "ms": diff_times["box36"]["r1b"],
+         "plain_ms": diff_times["box36"]["r1b_twin"]},
     ]
     for row in kernels:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]

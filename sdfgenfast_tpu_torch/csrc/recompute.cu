@@ -27,17 +27,64 @@
 // reverse-mode form tracks autograd to rounding.
 // Branches that autograd evaluates with a zero gradient (the unselected
 // case, a tie's loser) are skipped: they add exactly 0.
-// The nine per-cell values are float32, as autograd's; a warp first sums, in
-// float64 and ascending lane order, the lanes that share a triangle, then one
-// lane adds the nine sums to the float64 accumulator with atomics; the
-// wrapper casts to float32 once. Atomic order varies between runs; float64
-// keeps that far below a float32 ulp.
+//
+// R1b's sum. The nine per-cell values are float32, as autograd's; they are
+// summed in float64 in an order fixed by n, M and the range split that the
+// wrapper passes (ops/recompute.py::vjp_ranges), never by the card:
+// - Warp w owns the contiguous cells [w * span, min((w + 1) * span, n)) and
+//   walks them 32 at a time (lane l takes cell base + l). A cell's key is
+//   its tid; a cell with tid < 0, or past the range's end, has key -1 and
+//   adds 0; a cell with grad_phi == 0 keeps its key and adds exactly 0, so
+//   it does not break a run. A run is a maximal stretch of equal keys.
+// - The warp carries the current run (key K) as nine float64 sums per lane,
+//   in shared memory (so they hold no registers while cell_vjp runs): lane
+//   l adds its cell's values while every lane of a step has key K.
+// - A step that holds another key: if lane 0 has key K, the lanes of that
+//   first run add theirs; K's sum is then flushed: lane q < 9 sums
+//   component q of lanes 0-15's carries in ascending lane order from 0.0,
+//   lane 16 + q that of lanes 16-31, and lane q adds the second half to the
+//   first (a shuffle butterfly over the nine components was slower on
+//   box36). Runs that start and end inside the step are summed by a
+//   segmented inclusive scan
+//   (__shfl_up_sync at offsets 1, 2, 4, 8, 16, a lane adding what the
+//   lane `offset` below holds while that lane is in its run) and flushed
+//   from their last lane, after the carry: the runs of one key in ascending
+//   lane order, runs of distinct keys at once. The run that holds lane 31
+//   becomes the carry: its lanes' values, 0 elsewhere.
+// - The range's end flushes the carry. A flush of key -1 writes nothing.
+// M <= 1024 (every dense mesh; sdf_recompute_vjp_rows): a flush goes into
+// the warp's own (M, 9) float64 row of a (ranges, M, 9) scratch; no other
+// warp writes that row, so no atomic. The row is not zeroed: the warp keeps
+// a mask of the keys it has flushed in shared memory (M <= 1024 bits, word
+// l holding keys 32 l .. 32 l + 31), stores a key's first flush and adds
+// the later ones, and writes the mask at its end. Then each column is
+// summed over the rows whose mask holds its key: G x 32 row slices (G
+// groups, from ops/recompute.py::vjp_sum_groups, so that small M still
+// fills the card), slice y taking rows y, y + 32 G, .. in ascending order
+// from 0.0; a shared-memory tree over each group's 32 slices at strides 16,
+// 8, 4, 2, 1; the G group sums in ascending order from 0.0 (a third launch
+// when G > 1); one cast to float32. A skipped entry would have added +0.0
+// to a float64 sum that starts at +0.0, so the result is that of zeroed
+// rows, and the scratch's traffic is per flush, not per row.
+// Bit-equal from run to run by construction; tests/test_torch_recompute.py
+// transcribes the order. M > 1024 (sdf_recompute_vjp): an (M, 9) table per
+// warp does not fit, so a flush is one float64 atomicAdd per component into
+// one accumulator, which the wrapper casts to float32; equal bits between
+// runs are then a measured property, not a guaranteed one (float64 keeps
+// the atomics' order far below a float32 ulp).
+//
+// Cell indices are 32-bit (unsigned) when n < 2^31 and 64-bit above, so R1's
+// (i, j, k) costs two 32-bit divisions, not two 64-bit ones; R1b divides
+// once per lane and then walks (i, j, k) 32 cells a step. R1b loads the
+// next step's id, gradient and parity before this step's cell_vjp.
 //
 // Bound on the H100: R1 is ~110 FP32 operations per cell plus a 36-byte
 // gather of the triangle (cached: neighbouring cells share it) and 9 bytes of
-// traffic; R1b ~3x the operations and the atomics, which the warp sum cuts
-// by up to 32x where runs of cells share a triangle (dense meshes). Built
-// with --fmad=false, so R1 matches its PyTorch twin bit for bit.
+// traffic; R1b needs ~224 operations for a plane-case cell and ~216 for a
+// one-edge cell (chip_smoke.py's OPS_R1B_*; cell_vjp computes more: all
+// three segment distances, and plane_vjp and seg_vjp compute their forward
+// values again), and its sum, whose flush work is per run, not per cell. Built with --fmad=false, so R1
+// matches its PyTorch twin bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -46,28 +93,33 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kSlices = 32;  // row slices per block of the summing launch
 
-__device__ __forceinline__ void cell_world(long long n, int nj, int nk,
+// Index: unsigned (n < 2^31) or unsigned long long
+template <typename Index>
+__device__ __forceinline__ void cell_world(Index n, int nj, int nk,
                                            float ox, float oy, float oz,
                                            float dx, float& x, float& y,
                                            float& z) {
-  const int k = (int)(n % nk);
-  const long long r = n / nk;
-  const int j = (int)(r % nj);
-  const int i = (int)(r / nj);
+  const int k = (int)(n % (Index)nk);
+  const Index r = n / (Index)nk;
+  const int j = (int)(r % (Index)nj);
+  const int i = (int)(r / (Index)nj);
   x = (float)i * dx + ox;
   y = (float)j * dx + oy;
   z = (float)k * dx + oz;
 }
 
+template <typename Index>
 __global__ void __launch_bounds__(kThreads)
 recompute_phi_kernel(const float* __restrict__ tri, const int* __restrict__ tid,
-                     const unsigned char* __restrict__ parity, long long n,
+                     const unsigned char* __restrict__ parity, Index n,
                      int nj, int nk, float ox, float oy, float oz, float dx,
                      float upper, float* __restrict__ phi) {
-  const long long step = (long long)gridDim.x * kThreads;
-  for (long long c = (long long)blockIdx.x * kThreads + threadIdx.x; c < n;
+  const Index step = (Index)gridDim.x * kThreads;
+  for (Index c = (Index)blockIdx.x * kThreads + threadIdx.x; c < n;
        c += step) {
     const int t = tid[c];
     float d = upper;
@@ -254,51 +306,249 @@ __device__ __forceinline__ void cell_vjp(const float p[3], const float* v,
   }
 }
 
+// The carried run's flush (key >= 0) from the lanes' carries in shared
+// memory: lane q < 9 sums component q of lanes 0-15 in ascending order,
+// lane 16 + q that of lanes 16-31; lane q adds the two halves and writes
+// into the warp's row (kRows; a store at the key's first flush, marked in
+// the warp's 32 mask words `seen`) or the shared accumulator (atomically).
+template <bool kRows>
+__device__ __forceinline__ void flush_carry(double* out, int key, int lane,
+                                            double (*acc)[kThreads],
+                                            unsigned* seen) {
+  __syncwarp();  // the other lanes' carries
+  const int q = lane & 15;
+  const double* a = &acc[q < 9 ? q : 0][(threadIdx.x & ~31) + (lane & 16)];
+  double s = 0.0;
+  if (q < 9) {
+#pragma unroll
+    for (int l = 0; l < 16; ++l) s += a[l];
+  }
+  s += __shfl_down_sync(kFullMask, s, 16);
+  if (kRows) {
+    // lane 0 reads and marks the key's bit and passes what it read on
+    const unsigned bit = 1u << (key & 31);
+    unsigned word = 0;
+    if (lane == 0) {
+      word = seen[key >> 5];
+      seen[key >> 5] = word | bit;
+    }
+    const bool first = (__shfl_sync(kFullMask, word, 0) & bit) == 0;
+    if (lane < 9) {
+      if (first)
+        out[9 * key + lane] = s;
+      else
+        out[9 * key + lane] += s;
+    }
+  } else if (lane < 9) {
+    atomicAdd(out + 9LL * key + lane, s);
+  }
+  __syncwarp();  // before the carries are written again
+}
+
+template <typename Index, bool kRows>
 __global__ void __launch_bounds__(kThreads)
 recompute_vjp_kernel(const float* __restrict__ tri,
                      const int* __restrict__ tid,
                      const unsigned char* __restrict__ parity,
-                     const float* __restrict__ grad_phi, long long n, int nj,
+                     const float* __restrict__ grad_phi, Index n, int nj,
                      int nk, float ox, float oy, float oz, float dx,
-                     double* __restrict__ grad_tri) {
-  __shared__ float stage[9][kThreads];
+                     Index span, int ranges, int m9, double* __restrict__ out,
+                     unsigned* __restrict__ masks) {
+  // the carry, per lane: in shared memory, so that it holds no registers
+  // while cell_vjp runs
+  __shared__ double acc[9][kThreads];
+  // kRows: the keys this warp has flushed, one bit each
+  __shared__ unsigned seen_words[kWarps][kRows ? 32 : 1];
   const int lane = threadIdx.x & 31;
-  const int warp0 = threadIdx.x - lane;
-  const long long step = (long long)gridDim.x * kThreads;
-  // the loop bound is uniform over the block, so every lane reaches the
+  const int range = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (range >= ranges) return;  // whole warps
+  unsigned* seen = seen_words[threadIdx.x >> 5];
+  if (kRows) {
+    out += (long long)range * m9;
+    seen[lane] = 0;
+  }
+  const Index begin = (Index)range * span;
+  const Index end = begin + span < n ? begin + span : n;
+  int key = -1;  // the carried run's key (warp-uniform)
+#pragma unroll
+  for (int q = 0; q < 9; ++q) acc[q][threadIdx.x] = 0.0;
+  // the lane's cell as (i, j, k), divided once and then walked 32 cells a
+  // step
+  int ci, cj, ck;
+  {
+    const Index c0 = begin + lane;
+    const Index r = c0 / (Index)nk;
+    ck = (int)(c0 % (Index)nk);
+    cj = (int)(r % (Index)nj);
+    ci = (int)(r / (Index)nj);
+  }
+  // the next step's id, gradient and parity are loaded a step ahead
+  int t_next = -1;
+  float up_next = 0.0f;
+  unsigned char par_next = 0;
+  if (begin + lane < end) {
+    t_next = tid[begin + lane];
+    up_next = grad_phi[begin + lane];
+    par_next = parity[begin + lane];
+  }
+  // the loop bound is uniform over the warp, so every lane reaches the
   // warp collectives together
-  for (long long base = (long long)blockIdx.x * kThreads; base < n;
-       base += step) {
-    const long long c = base + threadIdx.x;
-    int t = -1;
+  for (Index base = begin; base < end;
+       base += 32, ck += 32) {
+    while (ck >= nk) {
+      ck -= nk;
+      if (++cj == nj) {
+        cj = 0;
+        ++ci;
+      }
+    }
+    int t = t_next;
+    const float up = up_next;
+    const bool odd = par_next != 0;
+    const Index c_next = base + 32 + lane;
+    if (c_next < end) {
+      t_next = tid[c_next];
+      up_next = grad_phi[c_next];
+      par_next = parity[c_next];
+    } else {
+      t_next = -1;
+    }
     float g[9];
 #pragma unroll
     for (int q = 0; q < 9; ++q) g[q] = 0.0f;
-    if (c < n) {
-      t = tid[c];
-      const float up = grad_phi[c];
-      if (t >= 0 && up != 0.0f) {
-        float p[3];
-        cell_world(c, nj, nk, ox, oy, oz, dx, p[0], p[1], p[2]);
-        cell_vjp(p, tri + 9LL * t, parity[c] ? -up : up, g);
-      } else {
-        t = -1;
-      }
+    if (t < 0) {
+      t = -1;
+    } else if (up != 0.0f) {
+      const float p[3] = {(float)ci * dx + ox, (float)cj * dx + oy,
+                          (float)ck * dx + oz};
+      cell_vjp(p, tri + 9LL * t, odd ? -up : up, g);
     }
+    const unsigned same = __ballot_sync(kFullMask, t == key);
+    if (same == kFullMask) {
 #pragma unroll
-    for (int q = 0; q < 9; ++q) stage[q][threadIdx.x] = g[q];
-    const unsigned peers = __match_any_sync(kFullMask, t);
-    __syncwarp();
-    if (t >= 0 && lane == __ffs(peers) - 1) {
-      for (int q = 0; q < 9; ++q) {
-        double sum = 0.0;
-        for (unsigned m = peers; m != 0; m &= m - 1)
-          sum += (double)stage[q][warp0 + __ffs(m) - 1];
-        atomicAdd(grad_tri + 9LL * t + q, sum);
+      for (int q = 0; q < 9; ++q) acc[q][threadIdx.x] += (double)g[q];
+      continue;
+    }
+    const int below = __shfl_up_sync(kFullMask, t, 1);
+    const unsigned heads = __ballot_sync(kFullMask, lane == 0 || t != below);
+    const unsigned later = heads & ~1u;
+    const int lead_end = later ? __ffs(later) - 1 : 32;
+    const int last = 31 - __clz(heads);  // the head of lane 31's run
+    const bool joins = (same & 1u) != 0;
+    if (joins && lane < lead_end) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) acc[q][threadIdx.x] += (double)g[q];
+    }
+    if (key >= 0) flush_carry<kRows>(out, key, lane, acc, seen);
+    // runs that start and end in this step
+    const unsigned mids = heads & ~(1u << last) & (joins ? ~1u : ~0u);
+    if (mids != 0) {
+      const int start = 31 - __clz(heads & ((2u << lane) - 1u));
+      double s[9];
+#pragma unroll
+      for (int q = 0; q < 9; ++q) s[q] = (double)g[q];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+        for (int q = 0; q < 9; ++q) {
+          const double u = __shfl_up_sync(kFullMask, s[q], off);
+          if (lane - off >= start) s[q] += u;
+        }
+      }
+      // a run's last lane: the next head's lane - 1
+      const unsigned next = heads & ~((2u << lane) - 1u);
+      const int tail_of = next ? __ffs(next) - 2 : 31;
+      const bool mid_tail = ((mids >> start) & 1u) && tail_of == lane;
+      if (kRows) {
+        // the tails flush at once where their keys differ; a key's runs in
+        // ascending lane order, one round each, the first a store if the
+        // warp has not flushed the key before
+        const bool mine = mid_tail && t >= 0;
+        const unsigned peers = __match_any_sync(kFullMask,
+                                                mine ? t : -2 - lane);
+        const int rank = __popc(peers & ((1u << lane) - 1u));
+        const unsigned bit = 1u << (t & 31);
+        const bool fresh = mine && rank == 0 && (seen[t >> 5] & bit) == 0;
+        const int rounds = __reduce_max_sync(kFullMask, mine ? rank + 1 : 0);
+        for (int r = 0; r < rounds; ++r) {
+          if (mine && rank == r) {
+#pragma unroll
+            for (int q = 0; q < 9; ++q) {
+              if (fresh)
+                out[9 * t + q] = s[q];
+              else
+                out[9 * t + q] += s[q];
+            }
+          }
+          __syncwarp();
+        }
+        if (fresh) atomicOr(&seen[t >> 5], bit);  // shared memory
+      } else if (mid_tail && t >= 0) {
+#pragma unroll
+        for (int q = 0; q < 9; ++q) atomicAdd(out + 9LL * t + q, s[q]);
       }
     }
-    __syncwarp();
+    if (kRows) __syncwarp();
+    key = __shfl_sync(kFullMask, t, 31);
+#pragma unroll
+    for (int q = 0; q < 9; ++q)
+      acc[q][threadIdx.x] = lane >= last ? (double)g[q] : 0.0;
   }
+  if (key >= 0) flush_carry<kRows>(out, key, lane, acc, seen);
+  if (kRows) {
+    __syncwarp();
+    masks[32 * range + lane] = seen[lane];
+  }
+}
+
+// The rows' column c summed in float64 over `groups` x kSlices slices:
+// thread (x, y) of block (bx, g), 32 x kSlices threads, takes column
+// bx * 32 + x and slice g * kSlices + y: the rows y', y' + groups * kSlices,
+// .. whose mask holds the column's key, in ascending order from 0.0; then a
+// tree over the block's slices at strides 16, 8, 4, 2, 1. One group: the
+// float32 cast into out[c]; else the group's sum into parts[g][c].
+__global__ void __launch_bounds__(32 * kSlices)
+vjp_rows_sum_kernel(const double* __restrict__ rows,
+                    const unsigned* __restrict__ masks, int ranges, int m9,
+                    double* __restrict__ parts, float* __restrict__ out) {
+  __shared__ double part[kSlices][33];
+  const int x = threadIdx.x & 31;
+  const int y = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + x;
+  const int stride = gridDim.y * kSlices;
+  double s = 0.0;
+  if (col < m9) {
+    const int key = col / 9;
+    const unsigned* mask = masks + (key >> 5);
+    const unsigned bit = 1u << (key & 31);
+    for (int r = blockIdx.y * kSlices + y; r < ranges; r += stride)
+      if (mask[32 * r] & bit) s += rows[(long long)r * m9 + col];
+  }
+  part[y][x] = s;
+  __syncthreads();
+#pragma unroll
+  for (int st = kSlices / 2; st > 0; st >>= 1) {
+    if (y < st) part[y][x] += part[y + st][x];
+    __syncthreads();
+  }
+  if (y == 0 && col < m9) {
+    if (gridDim.y == 1)
+      out[col] = (float)part[0][x];
+    else
+      parts[(long long)blockIdx.y * m9 + col] = part[0][x];
+  }
+}
+
+// out[c] = float32 of the groups' sums of column c, in ascending order from
+// 0.0.
+__global__ void __launch_bounds__(kThreads)
+vjp_parts_sum_kernel(const double* __restrict__ parts, int groups, int m9,
+                     float* __restrict__ out) {
+  const int col = blockIdx.x * kThreads + threadIdx.x;
+  if (col >= m9) return;
+  double s = 0.0;
+  for (int g = 0; g < groups; ++g) s += parts[(long long)g * m9 + col];
+  out[col] = (float)s;
 }
 
 template <typename Kernel>
@@ -317,6 +567,38 @@ cudaError_t grid_blocks(Kernel kernel, long long n, int* blocks) {
   return cudaSuccess;
 }
 
+template <typename Index>
+cudaError_t launch_phi(const float* tri, const int* tid,
+                       const unsigned char* parity, long long n, int nj,
+                       int nk, float ox, float oy, float oz, float dx,
+                       float upper, float* phi, cudaStream_t stream) {
+  int blocks = 0;
+  const cudaError_t err = grid_blocks(recompute_phi_kernel<Index>, n, &blocks);
+  if (err != cudaSuccess) return err;
+  recompute_phi_kernel<Index><<<blocks, kThreads, 0, stream>>>(
+      tri, tid, parity, (Index)n, nj, nk, ox, oy, oz, dx, upper, phi);
+  return cudaGetLastError();
+}
+
+template <bool kRows>
+cudaError_t launch_vjp(const float* tri, const int* tid,
+                       const unsigned char* parity, const float* grad_phi,
+                       long long n, int nj, int nk, float ox, float oy,
+                       float oz, float dx, long long span, int ranges, int m9,
+                       double* out, unsigned* masks, cudaStream_t stream) {
+  const int blocks = (ranges + kWarps - 1) / kWarps;
+  if (n < (1LL << 31))
+    recompute_vjp_kernel<unsigned, kRows><<<blocks, kThreads, 0, stream>>>(
+        tri, tid, parity, grad_phi, (unsigned)n, nj, nk, ox, oy, oz, dx,
+        (unsigned)span, ranges, m9, out, masks);
+  else
+    recompute_vjp_kernel<unsigned long long, kRows>
+        <<<blocks, kThreads, 0, stream>>>(
+            tri, tid, parity, grad_phi, (unsigned long long)n, nj, nk, ox,
+            oy, oz, dx, (unsigned long long)span, ranges, m9, out, masks);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sdf_recompute_phi(const float* tri, const int* tid,
@@ -325,24 +607,55 @@ extern "C" int sdf_recompute_phi(const float* tri, const int* tid,
                                  float dx, float upper, float* phi,
                                  void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  int blocks = 0;
-  const cudaError_t err = grid_blocks(recompute_phi_kernel, n, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  recompute_phi_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      tri, tid, parity, n, nj, nk, ox, oy, oz, dx, upper, phi);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(n < (1LL << 31)
+                   ? launch_phi<unsigned>(tri, tid, parity, n, nj, nk, ox, oy,
+                                          oz, dx, upper, phi, s)
+                   : launch_phi<unsigned long long>(tri, tid, parity, n, nj,
+                                                    nk, ox, oy, oz, dx, upper,
+                                                    phi, s));
 }
 
+// M > 1024: the flushes go to `grad_tri` ((M, 9) float64, zeroed by the
+// caller) by atomics.
 extern "C" int sdf_recompute_vjp(const float* tri, const int* tid,
                                  const unsigned char* parity,
                                  const float* grad_phi, long long n, int nj,
                                  int nk, float ox, float oy, float oz,
-                                 float dx, double* grad_tri, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  int blocks = 0;
-  const cudaError_t err = grid_blocks(recompute_vjp_kernel, n, &blocks);
+                                 float dx, long long span, int ranges,
+                                 double* grad_tri, void* stream) {
+  if (n <= 0 || ranges <= 0) return (int)cudaGetLastError();
+  return (int)launch_vjp<false>(tri, tid, parity, grad_phi, n, nj, nk, ox, oy,
+                                oz, dx, span, ranges, 0, grad_tri, nullptr,
+                                (cudaStream_t)stream);
+}
+
+// M <= 1024: the flushes go to `rows` ((ranges, M, 9) float64 scratch,
+// never zeroed) and the keys each range flushed to `masks` ((ranges, 32)),
+// then the flushed entries are summed in `groups` groups of row slices
+// (their sums in `parts`, (groups, M, 9) float64, when groups > 1) into
+// `grad` ((M, 9) float32).
+extern "C" int sdf_recompute_vjp_rows(const float* tri, const int* tid,
+                                      const unsigned char* parity,
+                                      const float* grad_phi, long long n,
+                                      int nj, int nk, float ox, float oy,
+                                      float oz, float dx, long long span,
+                                      int ranges, int m, int groups,
+                                      double* rows, unsigned* masks,
+                                      double* parts, float* grad,
+                                      void* stream) {
+  if (m > 1024 || groups < 1)  // the masks' bits
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0 || ranges <= 0 || m <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_vjp<true>(tri, tid, parity, grad_phi, n, nj, nk,
+                                     ox, oy, oz, dx, span, ranges, 9 * m,
+                                     rows, masks, s);
   if (err != cudaSuccess) return (int)err;
-  recompute_vjp_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      tri, tid, parity, grad_phi, n, nj, nk, ox, oy, oz, dx, grad_tri);
+  vjp_rows_sum_kernel<<<dim3((9 * m + 31) / 32, groups), 32 * kSlices, 0,
+                        s>>>(rows, masks, ranges, 9 * m, parts, grad);
+  if (groups > 1)
+    vjp_parts_sum_kernel<<<(9 * m + kThreads - 1) / kThreads, kThreads, 0,
+                           s>>>(parts, groups, 9 * m, grad);
   return (int)cudaGetLastError();
 }

@@ -51,8 +51,10 @@ _SIGNATURES = {
     "sdf_dense_stream_counted": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P,
                                  _P, _P],
     "sdf_recompute_phi": [_P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _F, _P, _P],
-    "sdf_recompute_vjp": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _P,
-                          _P],
+    "sdf_recompute_vjp": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _L, _I,
+                          _P, _P],
+    "sdf_recompute_vjp_rows": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F,
+                               _L, _I, _I, _I, _P, _P, _P, _P, _P],
     "sdf_probe_vpu_peak": [_P, _P, _L, _I, _I, _P],
     "sdf_probe_vpu_mixed": [_P, _P, _L, _I, _P],
     "sdf_probe_scale2": [_P, _P, _I, _I, _P],

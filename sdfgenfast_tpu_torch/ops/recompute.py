@@ -21,7 +21,9 @@ package's ``jax.checkpoint`` with ``nothing_saveable`` per 2^20-cell chunk:
   (:func:`recompute_backward`) in ``csrc/recompute.cu``. R1b differentiates
   R1's float32 operations in reverse with autograd's rules (in exact
   arithmetic the closest point's weights: dphi/da = -sign * w_a * (p - cp)
-  / d) and sums the per-cell values in float64, cast to float32 once.
+  / d) and sums the per-cell values in float64, cast to float32 once: in a
+  fixed order over the warp ranges of :func:`vjp_ranges` up to
+  ``VJP_ROWS_MAX_TRIS`` triangles, by atomics above.
 - CPU tensors: the plain twins. Forward evaluates the formula above by
   2^20-cell chunks; backward evaluates it again by chunks under autograd
   (the cells' gathered vertex coordinates are the leaves) and sums the
@@ -43,11 +45,29 @@ from ..kernels import build
 from .geometry import gather_tri9, point_triangle_distance_sq_soa
 from .vdt import sqrt_f32
 
-__all__ = ["CHUNK_CELLS", "recompute_phi", "recompute_stage",
-           "recompute_forward", "recompute_forward_reference",
-           "recompute_backward", "recompute_backward_reference"]
+__all__ = ["CHUNK_CELLS", "VJP_ROWS_MAX_TRIS", "recompute_phi",
+           "recompute_stage", "recompute_forward",
+           "recompute_forward_reference", "recompute_backward",
+           "recompute_backward_reference", "cell_vjp_reference",
+           "vjp_ranges", "vjp_sum_groups"]
 
 CHUNK_CELLS = 1 << 20
+
+# R1b's split of the cells into contiguous warp ranges (csrc/recompute.cu):
+# at least VJP_MIN_SPAN cells a range, at most VJP_MAX_RANGES ranges, three
+# whole waves of the kernel on an H100 (VJP_WAVE warps: 132 SMs, 3 blocks of
+# 8 warps each). Up to VJP_ROWS_MAX_TRIS triangles (ops/dense.py's
+# DENSE_MAX_TRIS) each range sums into its own (M, 9) float64 row, and the
+# rows take whole waves within VJP_ROW_BYTES: one wave at M = 1024, so that
+# every SM holds its 24 warps (PERF.md section 6 has the times of each cap).
+VJP_ROWS_MAX_TRIS = 1024
+VJP_MIN_SPAN = 256
+VJP_WAVE = 132 * 3 * 8
+VJP_MAX_RANGES = 3 * VJP_WAVE
+VJP_ROW_BYTES = 256 << 20
+# the rows' sum takes groups of 32 row slices so that it runs at least
+# VJP_SUM_BLOCKS blocks of 32 columns (two per SM) where the rows allow
+VJP_SUM_BLOCKS = 2 * 132
 
 
 def _cell_positions(start: int, count: int, grid_shape, origin, dx: float,
@@ -87,18 +107,14 @@ def recompute_forward_reference(tri_verts, tid, parity, origin, dx: float,
     return torch.cat(out).reshape(tid.shape)
 
 
-def recompute_backward_reference(tri_verts, tid, parity, grad_phi, origin,
-                                 dx: float, upper: float,
-                                 chunk_cells: int = CHUNK_CELLS):
-    """Plain-torch twin of :func:`recompute_backward`: every chunk's phi is
-    evaluated again under autograd with the cells' gathered vertex
-    coordinates as leaves; the per-cell gradients are summed per triangle
-    in float64 and cast to float32 once. Returns (M, 3, 3) float32."""
+def _chunk_vjps(tri_verts, tid, parity, grad_phi, origin, dx: float,
+                upper: float, chunk_cells: int):
+    """Per chunk of `chunk_cells` cells: (ids, the nine per-cell gradients
+    with respect to the cells' gathered vertex coordinates), phi evaluated
+    again under autograd."""
     tri9 = tri_verts.detach().reshape(-1, 9).T
     flat_tid, flat_par = tid.reshape(-1), parity.reshape(-1)
     flat_g = grad_phi.reshape(-1)
-    acc = torch.zeros((9, tri9.shape[1]), dtype=torch.float64,
-                      device=tri9.device)
     for s, n in _chunks(flat_tid.numel(), chunk_cells):
         t = flat_tid[s:s + n]
         p = _cell_positions(s, n, tid.shape, origin, dx, tid.device)
@@ -109,6 +125,28 @@ def recompute_backward_reference(tri_verts, tid, parity, grad_phi, origin,
                              tuple(leaves[6:9]), p, t, flat_par[s:s + n],
                              upper)
             grads = torch.autograd.grad(phi, leaves, flat_g[s:s + n])
+        yield t, grads
+
+
+def cell_vjp_reference(tri_verts, tid, parity, grad_phi, origin, dx: float,
+                       upper: float, chunk_cells: int = CHUNK_CELLS):
+    """The per-cell terms of :func:`recompute_backward_reference`: (n, 9)
+    float32, cell-major (k fastest), columns (a, b, c) x (x, y, z)."""
+    return torch.cat([torch.stack(g, 1) for _, g in _chunk_vjps(
+        tri_verts, tid, parity, grad_phi, origin, dx, upper, chunk_cells)])
+
+
+def recompute_backward_reference(tri_verts, tid, parity, grad_phi, origin,
+                                 dx: float, upper: float,
+                                 chunk_cells: int = CHUNK_CELLS):
+    """Plain-torch twin of :func:`recompute_backward`: every chunk's phi is
+    evaluated again under autograd with the cells' gathered vertex
+    coordinates as leaves; the per-cell gradients are summed per triangle
+    in float64 and cast to float32 once. Returns (M, 3, 3) float32."""
+    m = tri_verts.shape[0]
+    acc = torch.zeros((9, m), dtype=torch.float64, device=tri_verts.device)
+    for t, grads in _chunk_vjps(tri_verts, tid, parity, grad_phi, origin, dx,
+                                upper, chunk_cells):
         ids = torch.clamp(t, min=0).long()
         for r, g in enumerate(grads):
             acc[r].index_add_(0, ids, g.double())
@@ -135,6 +173,26 @@ def _check(tri_verts, tid, parity, grad_phi=None):
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {devices}")
     return devices.pop()
+
+
+def vjp_ranges(n: int, m: int):
+    """(ranges, span) of R1b on n > 0 cells and m > 0 triangles: range w
+    holds the cells [w * span, min((w + 1) * span, n)), span a multiple of
+    32."""
+    cap = VJP_MAX_RANGES
+    if m <= VJP_ROWS_MAX_TRIS:
+        cap = min(cap, VJP_ROW_BYTES // (72 * m) // VJP_WAVE * VJP_WAVE)
+    want = min(cap, -(-n // VJP_MIN_SPAN))
+    span = -(-(-(-n // want)) // 32) * 32
+    return -(-n // span), span
+
+
+def vjp_sum_groups(ranges: int, m: int) -> int:
+    """Groups of 32 row slices in the sum of `ranges` rows of m triangles:
+    enough for VJP_SUM_BLOCKS blocks of 32 of the 9 m columns, at most one
+    slice per row, at least one group."""
+    blocks = -(-9 * m // 32)
+    return max(1, min(-(-VJP_SUM_BLOCKS // blocks), ranges // 32))
 
 
 def _launch(entry: str, tensors, tid, origin, dx: float, tail, out):
@@ -171,7 +229,10 @@ recompute_forward.launches = 0
 def recompute_backward(tri_verts, tid, parity, grad_phi, origin, dx: float,
                        upper: float):
     """Vertex gradient (M, 3, 3) float32 of <grad_phi, phi>. CUDA: one R1b
-    launch into a float64 accumulator, cast once. CPU:
+    call. Up to VJP_ROWS_MAX_TRIS triangles its sum is atomic-free and in
+    a fixed order (per-range float64 rows with a mask of the triangles each
+    range flushed, then the flushed entries summed and cast); above,
+    float64 atomics into one accumulator, cast once. CPU:
     :func:`recompute_backward_reference`."""
     device = _check(tri_verts, tid, parity, grad_phi)
     if device.type == "cpu":
@@ -181,10 +242,26 @@ def recompute_backward(tri_verts, tid, parity, grad_phi, origin, dx: float,
         raise ValueError(f"recompute_backward: unsupported device {device}")
     tensors = [x.detach().contiguous()
                for x in (tri_verts, tid, parity, grad_phi)]
-    acc = torch.zeros(tri_verts.shape, dtype=torch.float64, device=device)
-    _launch("sdf_recompute_vjp", tensors, tensors[1], origin, dx, (), acc)
+    m = tri_verts.shape[0]
+    if tid.numel() == 0 or m == 0:
+        return torch.zeros(tri_verts.shape, dtype=torch.float32, device=device)
+    ranges, span = vjp_ranges(tid.numel(), m)
+    if m <= VJP_ROWS_MAX_TRIS:
+        groups = vjp_sum_groups(ranges, m)
+        rows = torch.empty((ranges, m, 9), dtype=torch.float64, device=device)
+        masks = torch.empty((ranges, 32), dtype=torch.int32, device=device)
+        parts = torch.empty((groups, m, 9), dtype=torch.float64, device=device)
+        grad = torch.empty(tri_verts.shape, dtype=torch.float32, device=device)
+        _launch("sdf_recompute_vjp_rows", tensors, tensors[1], origin, dx,
+                (span, ranges, m, groups, rows.data_ptr(), masks.data_ptr(),
+                 parts.data_ptr()), grad)
+    else:
+        acc = torch.zeros(tri_verts.shape, dtype=torch.float64, device=device)
+        _launch("sdf_recompute_vjp", tensors, tensors[1], origin, dx,
+                (span, ranges), acc)
+        grad = acc.to(torch.float32)
     recompute_backward.launches += 1
-    return acc.to(torch.float32)
+    return grad
 
 
 recompute_backward.launches = 0

@@ -8,9 +8,21 @@ from __future__ import annotations
 
 import numpy as np
 
+from .mesh import Mesh, box_mesh
 from .ops.band_kernel import CHUNK
 
-__all__ = ["k2_segments"]
+__all__ = ["box36", "k2_segments"]
+
+
+def box36():
+    """The reference's 36-triangle benchmark box (``bench.py``): the 3x4x5
+    box with each face triangle split 1->3 at its centroid."""
+    m = box_mesh((3, 4, 5), (-1, -1, -1))
+    cent = m.verts[m.tris].mean(axis=1).astype(np.float32)
+    nv = len(m.verts)
+    tris = [(a, b, nv + i) for i, (a0, b0, c0) in enumerate(m.tris)
+            for a, b in ((a0, b0), (b0, c0), (c0, a0))]
+    return Mesh(np.concatenate([m.verts, cent]), np.asarray(tris, np.uint32))
 
 
 def k2_segments(tl, dx, tiles_dim, active, counts):
