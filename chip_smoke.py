@@ -10,9 +10,12 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
   3. each kernel against its plain-torch twin on the card, at the shapes the
      main path gives it (K1 the dense kernel, with the share of pairs its
      cull evaluates; K2 band rows and their coefficient pass, on the main
-     path's CSR and on hand-made segments; K3 jump-flood round, K4 chamfer,
-     R1b on both sides of its M = 1024 dispatch, the probes P1-P4; R1/R1b
-     on the step's own fields in phase 4d);
+     path's CSR and on hand-made segments; K3 jump-flood round; K4 chamfer
+     bit for bit at 1, 2, 3 and 5 passes on the main path's own
+     pre-chamfer field, random and ragged fields and thin grids; R1 bit
+     for bit in each of its forms on torus1024, a ragged grid with holes
+     and degenerate triangles; R1b on both sides of its M = 1024 dispatch,
+     the probes P1-P4; R1/R1b on the step's own fields in phase 4d);
   4. the main path, both halves. Binned: ``generate_from_file`` on the
      81,920-triangle sphere at 256^3 and 512^3, held against the reference
      binary's sparse goldens (bars of tests/test_parity_golden.py). Dense:
@@ -27,9 +30,11 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      of the loss. Each path's launch counters are set to 0 just before it
      and must have moved just after;
   5. wall time per call (median and min of warm calls, host work and the
-     copy back included), each kernel's time next to its twin's, and the
-     differentiable step's forward and forward+backward next to the same
-     step with R1/R1b swapped for their twins.
+     copy back included), each kernel's time next to its twin's (K4 and
+     R1 queued behind a spin, min and median of three repeats:
+     ``k4_r1_times``, which also times another checkout's package), and
+     the differentiable step's forward and forward+backward next to the
+     same step with R1/R1b swapped for their twins.
 
 Prints one JSON line of per-kernel results, then the card line, then, as the
 last line, ``{"ok": true, "device": {...}}``. Exits non-zero on any failure.
@@ -135,8 +140,8 @@ PEAK_BYTES = 3.35e12
 # candidate) pair of the band kernel, a triangle of its coefficient pass
 # (band_coefs_kernel's sums, products, clamps, two divisions and rsqrt), a
 # donor of a jump-flood round (3 subtractions, 3 products, 2 sums, 1
-# compare), an offset of a chamfer pass (1 add, 1 min), a cell of R1 and of
-# R1b.
+# compare), an offset of a chamfer pass (1 add, 1 min), a triangle of R1's
+# table and a cell of R1 and of R1b.
 OPS_DENSE_PAIR = 45
 # the dense pair's plane test alone, for a pair the cull skips: h = (cx*x +
 # (cy*y + c0)) + cz*z, h*h and the compare with the cell's best
@@ -145,7 +150,20 @@ OPS_BAND_PAIR = 90
 OPS_BAND_COEF = 150
 OPS_VDT_DONOR = 9
 OPS_CHAMFER_OFFSET = 2
-OPS_R1_CELL = 110
+# R1's table (recompute_terms_kernel): x13 and x23 (6), m13, m23 and d
+# (15), invdet (5), each edge's dv and max(|dv|^2, 1e-30) (3 x 9).
+OPS_R1_TERMS = 53
+# R1: the operations each path of a cell needs, the triangle terms from the
+# table. Every cell with a triangle: its position (6), the plane weights
+# and inside test (26), sqrt(max(d2, 1e-30)) and the parity's sign (3). A
+# plane-case cell adds p - projection and its d2 (23); an outside cell the
+# case's two compares, its two segment distances (2 x 29, one division
+# each) and their minimum (61). A plane-case cell is 58, an outside cell
+# 96; the bound counts this run's cells on each path (r1b_paths without a
+# gradient). Bytes set R1's bound on every mesh timed.
+OPS_R1_CELL = 35
+OPS_R1_PLANE = 23
+OPS_R1_EDGES = 61
 # R1b: the operations the function needs on each path of a cell, each
 # value taken once (cell_vjp computes more: all three segment distances, and
 # plane_vjp / seg_vjp compute their forward values again). Every cell with a
@@ -401,29 +419,281 @@ def k3_call_time(torch, device, card, mesh_path, nx):
     return total, launches, levels
 
 
-def check_k4(torch, device, full_shape,
-             shapes=((128, 128, 128), (48, 41, 75))):
-    """K4 vs its twin: bit-equal at >= 128^3 and a ragged shape, passes=2.
-    Returns (max_abs_err, ms, plain_ms), the times at the main path's grid."""
+def main_path_chamfer_input(torch, device, mesh_path, nx):
+    """The field and dx that the main path (``generate_from_file`` on
+    `mesh_path` at `nx`) hands to ``vdt_kernel.chamfer``
+    (pipeline.exact_core), taken by wrapping the wrapper for one call."""
+    from sdfgenfast_tpu_torch import generate_from_file
     from sdfgenfast_tpu_torch.ops import vdt_kernel
 
+    chamfer, seen = vdt_kernel.chamfer, []
+
+    def capture(phi, dx, passes=2):
+        seen.append((phi.clone(), dx))
+        return chamfer(phi, dx, passes)
+
+    # the wrapper counts its launches on the module's `chamfer`, here this
+    capture.launches = 0
+    vdt_kernel.chamfer = capture
+    try:
+        generate_from_file(mesh_path, nx=nx, device=device)
+    finally:
+        vdt_kernel.chamfer = chamfer
+    if len(seen) != 1:
+        raise AssertionError(f"the main path called chamfer {len(seen)} times")
+    return seen[0]
+
+
+# K4 cases beside the main path's field: grids one cell thin with a
+# negative dx, where a path through a cell outside the grid would be
+# shorter than any path inside it (tests/test_torch_chamfer_tiles.py), so
+# that a kernel keeping a relaxed value there instead of 3e38 would differ
+K4_THIN = (((12, 1, 70), 2), ((9, 33, 1), 3), ((1, 40, 66), 2),
+           ((5, 1, 1), 4))
+
+
+def check_k4(torch, device, mesh_path):
+    """K4 vs its twin, bit for bit, at passes 1, 2, 3 and 5: the main
+    path's own pre-chamfer field at sphere82k 256^3, random fields at 128^3
+    and 256^3 and at the ragged shapes (48, 41, 75), (130, 5, 66) and (17,
+    40, 31), and the thin grids of K4_THIN with a negative dx. One launch
+    per call for passes <= 4 (two at 5); the input is left as it was.
+    Returns (max_abs_err, plain_ms): the twin's time on the main path's
+    field."""
+    from sdfgenfast_tpu_torch.ops import vdt_kernel
+
+    field, dx_main = main_path_chamfer_input(torch, device, mesh_path, 254)
     rng = np.random.default_rng(1)
     dx = float(np.float32(0.02))
+    cases = [("sphere82k 256^3 main-path field", field, dx_main)] + [
+        (f"random {shape}", torch.from_numpy(np.abs(rng.normal(
+            size=shape)).astype(np.float32)).to(device), dx)
+        for shape in ((128, 128, 128), (256, 256, 256), (48, 41, 75),
+                      (130, 5, 66), (17, 40, 31))]
     err = 0.0
-    for shape in shapes:
-        phi = torch.from_numpy(
-            np.abs(rng.normal(size=shape)).astype(np.float32)).to(device)
-        got = vdt_kernel.chamfer(phi, dx, 2)
-        want = vdt_kernel.chamfer_reference(phi, dx, 2)
+    for label, phi, d in cases:
+        before = phi.clone()
+        for passes in (1, 2, 3, 5):
+            vdt_kernel.chamfer.launches = 0
+            got = vdt_kernel.chamfer(phi, d, passes)
+            launched = vdt_kernel.chamfer.launches
+            want = vdt_kernel.chamfer_reference(phi, d, passes)
+            if not torch.equal(bits(torch, got), bits(torch, want)):
+                raise AssertionError(f"K4 {label}, {passes} passes: differs "
+                                     f"from its twin")
+            if launched != (1 if passes <= 4 else 2):
+                raise AssertionError(f"K4 {passes} passes: {launched} "
+                                     f"launches")
+            err = max(err, abs_err(got, want))
+        if not torch.equal(bits(torch, phi), bits(torch, before)):
+            raise AssertionError(f"K4 {label}: the input was written")
+    for shape, passes in K4_THIN:
+        phi = torch.from_numpy(np.abs(rng.normal(size=shape)).astype(
+            np.float32)).to(device)
+        got = vdt_kernel.chamfer(phi, -0.5, passes)
+        want = vdt_kernel.chamfer_reference(phi, -0.5, passes)
         if not torch.equal(bits(torch, got), bits(torch, want)):
-            raise AssertionError(f"K4 {shape}: chamfer differs from its twin")
-        err = max(err, abs_err(got, want))
-    print(f"K4 chamfer vs twin: bit-equal at {shapes}", flush=True)
-    phi = torch.from_numpy(
-        np.abs(rng.normal(size=full_shape)).astype(np.float32)).to(device)
-    ms = cuda_ms(torch, lambda: vdt_kernel.chamfer(phi, dx, 2), 10)
-    plain = cuda_ms(torch, lambda: vdt_kernel.chamfer_reference(phi, dx, 2), 3)
-    return err, ms, plain
+            raise AssertionError(f"K4 thin {shape}, dx -0.5: differs from "
+                                 f"its twin")
+    print(f"K4 chamfer vs twin: bit-equal at passes 1, 2, 3, 5 on "
+          f"{[c[0] for c in cases]} (one launch a call up to 4 passes, two "
+          f"at 5, the input untouched), and on the thin grids {K4_THIN} "
+          f"with dx -0.5", flush=True)
+    plain = cuda_ms(torch, lambda: vdt_kernel.chamfer_reference(
+        field, dx_main, 2), 3)
+    return err, plain
+
+
+def check_r1_cases(torch, device, box, torus, torus_grid):
+    """R1's table (recompute_terms) bit-equal to its twin, and R1 in every
+    form that the triangle count allows (R1_FORMS; the shared table up to
+    R1_SHARED_CAP), four cells and one cell a thread
+    (R1_CELLS_PER_THREAD), bit-equal to its twin: torus1024 on its
+    256-class grid, box36 on a ragged grid with tid = -1 holes
+    (r1b_inputs) passed as views that start off the 16-byte (ids) and
+    4-byte (parity) alignment the kernel loads need, and degenerate
+    triangles (a point, a segment, collinear vertices) beside the unit
+    right triangle, whose weights are exact at a grid of 1/16 (w = 0
+    boundaries), on a grid whose cell count is not a multiple of 4.
+    Returns the table's largest difference from its twin (0)."""
+    from sdfgenfast_tpu_torch.ops import recompute as rc
+
+    rng = np.random.default_rng(9)
+    cases = []
+    for label, mesh, origin, dx, shape, holes in (
+            ("torus1024", torus, torus_grid.origin, torus_grid.dx,
+             torus_grid.shape, False),
+            ("box36 ragged, holes, unaligned views", box,
+             (-2.6, -3.1, -3.55), 0.09, (62, 73, 91), True)):
+        tv, tid, parity, _, origin, dx, upper = r1b_inputs(
+            torch, device, mesh, origin, dx, shape, rng, holes)
+        if holes:
+            tid, parity = tid[1:], parity[1:]
+            if tid.data_ptr() % 16 == 0 or parity.data_ptr() % 4 == 0:
+                raise AssertionError("the views are aligned")
+        cases.append((label, tv, tid, parity, origin, dx, upper))
+    special = np.array([[[0, 0, 0], [1, 0, 0], [0, 1, 0]],
+                        [[0.5, 0.25, 0.5]] * 3,
+                        [[0, 0, 0.25], [0, 0, 0.25], [1, 0.5, 0.25]],
+                        [[-0.5, 0, 0], [0, 0.5, 0], [0.5, 1.0, 0]]],
+                       np.float32)
+    tris = np.concatenate([special, (rng.normal(size=(60, 3, 3)) * 0.7)
+                           .astype(np.float32)])
+    shape = (37, 29, 43)
+    n = int(np.prod(shape))
+    tid = np.where(rng.random(n) < 0.5, rng.integers(0, 4, n),
+                   rng.integers(0, len(tris), n)).astype(np.int32)
+    tid[rng.random(n) < 0.05] = -1
+    cases.append(("degenerate triangles", torch.from_numpy(tris).to(device),
+                  torch.from_numpy(tid.reshape(shape)).to(device),
+                  torch.from_numpy(rng.random(shape) < 0.5).to(device),
+                  (-1.0, -1.0, -1.0), 0.0625,
+                  float(np.float32(sum(shape)) * np.float32(0.0625))))
+    terms_err = 0.0
+    for label, tv, tid, parity, origin, dx, upper in cases:
+        table = rc.recompute_terms(tv)
+        table_want = rc.recompute_terms_reference(tv)
+        if not torch.equal(bits(torch, table), bits(torch, table_want)):
+            raise AssertionError(f"R1 table {label}: differs from the twin")
+        terms_err = max(terms_err, abs_err(table, table_want))
+        want = rc.recompute_forward_reference(tv, tid, parity, origin, dx,
+                                              upper)
+        m = tv.shape[0]
+        forms = [f for f in rc.R1_FORMS
+                 if f != "shared" or m <= rc.R1_SHARED_CAP]
+        for form in forms:
+            for vec in rc.R1_CELLS_PER_THREAD:
+                got = rc.r1_launch(tv, tid, parity, origin, dx, upper, form,
+                                   vec)
+                if not torch.equal(bits(torch, got), bits(torch, want)):
+                    bad = int((bits(torch, got) != bits(torch, want)).sum())
+                    raise AssertionError(f"R1 {label} ({form}, {vec} cells a "
+                                         f"thread): {bad} cells differ from "
+                                         f"the twin")
+        print(f"R1 {label} (M={m}, {tuple(tid.shape)}): table and phi "
+              f"bit-equal to the twins in the forms {forms}, 1 and 4 cells a "
+              f"thread", flush=True)
+    return terms_err
+
+
+def r1_step_inputs(torch, device, mesh, grid):
+    """R1's arguments in a step on `mesh` at `grid`: the pipeline's ids
+    (``make_level_set3(return_tid=True)``), the parity and the triangles'
+    vertices, as ``make_level_set3(verts=...)`` passes them."""
+    from sdfgenfast_tpu_torch.pipeline import (_parity_device, bin_mesh,
+                                               make_level_set3)
+
+    binned = bin_mesh(mesh, grid)
+    with torch.no_grad():
+        _, tid = make_level_set3(mesh, grid, binned=binned, device=device,
+                                 return_tid=True)
+    parity = _parity_device(torch.from_numpy(
+        binned.parity_packed if binned.parity_packed is not None
+        else binned.parity_crossings).to(device), grid.shape[0])
+    tv = torch.from_numpy(mesh.verts[binned.tris.astype(np.int64)].astype(
+        np.float32)).to(device)
+    origin = tuple(float(o) for o in np.asarray(grid.origin, np.float32))
+    dx = float(np.float32(grid.dx))
+    upper = float(np.float32(sum(grid.shape)) * np.float32(dx))
+    return tv, tid, parity, origin, dx, upper
+
+
+def repeats_ms(torch, fn, reps=10, repeats=3):
+    """(min, median) over `repeats` runs of queued_ms(fn, reps)."""
+    ts = [queued_ms(torch, fn, reps) for _ in range(repeats)]
+    return min(ts), statistics.median(ts)
+
+
+def r1_tori():
+    """(label, mesh, grid) of tori from 64 to 384 triangles (the shared
+    table's capacity), torus_mesh(nu, nv) with 2 nu nv triangles, at their
+    256-class grid (sizing_python_api, nx = 254): R1's form by M."""
+    from sdfgenfast_tpu_torch.grid import sizing_python_api
+    from sdfgenfast_tpu_torch.mesh import torus_mesh
+
+    return [(f"torus{2 * nu * nv}", m, sizing_python_api(*m.bounds(), nx=254))
+            for nu, nv in ((8, 4), (8, 8), (12, 8), (16, 8), (20, 8), (24, 8))
+            for m in (torus_mesh(nu, nv),)]
+
+
+def k4_r1_times(reps=10, repeats=3):
+    """K4 (2 passes) on the main path's pre-chamfer field at sphere82k
+    256^3, and R1 on the step's own inputs (r1_step_inputs) at sphere82k
+    256^3, box36 256 x 341 x 425, the tori of r1_tori and torus1024 (256 x
+    256 x 75 and the like): each timed by repeats_ms (queued behind the
+    spin, `reps` calls, `repeats` times), R1 also in each of its forms (the
+    shared table up to its capacity) and cells a thread where the package
+    has them, and each launch of an R1 call alone (launch_device_ms). Uses
+    only
+    entry points that older versions of the package have too, so it times
+    whichever package is first on the path; from another checkout's root:
+    ``python3 -c "import runpy; runpy.run_path('<this file>')
+    ['k4_r1_times']()"``. Prints a line per time; returns {key: (min,
+    median)} and, per mesh, "r1_<label>_split": launch_device_ms."""
+    import torch
+
+    from sdfgenfast_tpu_torch import load_mesh
+    from sdfgenfast_tpu_torch.grid import (sizing_mode2a_proportional,
+                                           sizing_python_api)
+    from sdfgenfast_tpu_torch.mesh import Mesh, torus_mesh
+    from sdfgenfast_tpu_torch.ops import recompute as rc
+    from sdfgenfast_tpu_torch.ops import vdt_kernel
+    from sdfgenfast_tpu_torch.testing import box36
+
+    device = torch.device("cuda", 0)
+    card = card_line()
+    sphere_path = os.path.join(RESOURCES, "icosphere6.stl")
+    out = {}
+    field, dx = main_path_chamfer_input(torch, device, sphere_path, 254)
+    vdt_kernel.chamfer.launches = 0
+    vdt_kernel.chamfer(field, dx, 2)
+    launches = vdt_kernel.chamfer.launches
+    out["k4"] = repeats_ms(torch, lambda: vdt_kernel.chamfer(field, dx, 2),
+                           reps, repeats)
+    print(f"[{card}] K4 sphere82k {tuple(field.shape)}, 2 passes, "
+          f"{launches} launch(es) a call: min {out['k4'][0]:.4f} ms, median "
+          f"{out['k4'][1]:.4f} ms over {repeats} x {reps} queued calls",
+          flush=True)
+    del field
+    v, t, bounds = load_mesh(sphere_path)
+    box, torus = box36(), torus_mesh(32, 16)
+    meshes = (("sphere82k", Mesh(v, t), sizing_python_api(
+                  np.asarray(bounds[0], np.float32),
+                  np.asarray(bounds[1], np.float32), nx=254)),
+              ("box36", box, sizing_mode2a_proportional(*box.bounds(), 256,
+                                                        1)),
+              *r1_tori(),
+              ("torus1024", torus, sizing_python_api(*torus.bounds(),
+                                                     nx=254)))
+    # every (form, cells a thread) of R1 where the package has them
+    configs = [(f, v) for f in getattr(rc, "R1_FORMS", ())
+               for v in getattr(rc, "R1_CELLS_PER_THREAD", ())]
+    shared_cap = getattr(rc, "R1_SHARED_CAP", 0)
+    for label, mesh, grid in meshes:
+        args = r1_step_inputs(torch, device, mesh, grid)
+        m = args[0].shape[0]
+        out[f"r1_{label}"] = repeats_ms(
+            torch, lambda: rc.recompute_forward(*args), reps, repeats)
+        out[f"r1_{label}_split"] = launch_device_ms(
+            torch, lambda: rc.recompute_forward(*args), reps,
+            r"recompute_(phi|terms)")
+        line = (f"[{card}] R1 {label} (M={m}, {tuple(args[1].shape)}"
+                + (f", default {rc.r1_config(m)}" if configs else "")
+                + f"): min {out[f'r1_{label}'][0]:.4f} ms, median "
+                f"{out[f'r1_{label}'][1]:.4f} ms")
+        for form, vec in configs:
+            if form == "shared" and m > shared_cap:
+                continue
+            key = f"r1_{label}_{form}_{vec}"
+            out[key] = repeats_ms(torch, lambda: rc.r1_launch(
+                *args, form, vec), reps, repeats)
+            line += (f"; {form}, {vec} a thread {out[key][0]:.4f} / "
+                     f"{out[key][1]:.4f}")
+        print(line + f" (min / median over {repeats} x {reps} queued calls);"
+              f" per launch: {split_text(out[f'r1_{label}_split'])}",
+              flush=True)
+        del args
+    return out
 
 
 def tri_local(torch, device, mesh, origin):
@@ -750,8 +1020,9 @@ def check_golden(phi, golden_path, far_key, stride, grid):
 
 
 def kernel_name(mangled):
-    """A kernel's name (with its bool and unsigned template arguments) from
-    its mangled symbol: the length-prefixed identifier that ends in ``_kernel``."""
+    """A kernel's name (with its bool, int and unsigned template arguments)
+    from its mangled symbol: the length-prefixed identifier that ends in
+    ``_kernel``."""
     # the innermost name is the last one; a hash's digits may precede its
     # length, so every suffix of a run of digits is tried
     for m in reversed(list(re.finditer(r"\d+", mangled))):
@@ -759,14 +1030,15 @@ def kernel_name(mangled):
             n = int(m.group(0)[k:])
             name = mangled[m.end():m.end() + n]
             if len(name) == n and name.endswith("_kernel"):
-                t = re.match(r"I((?:Lb[01]E|j|y)+)E", mangled[m.end() + n:])
+                t = re.match(r"I((?:Lb[01]E|Li\d+E|j|y)+)E",
+                             mangled[m.end() + n:])
                 if t is None:
                     return name
                 names = {"Lb1E": "true", "Lb0E": "false", "j": "unsigned",
                          "y": "unsigned long long"}
                 return name + "<" + ", ".join(
-                    names[a] for a in re.findall(r"Lb[01]E|j|y",
-                                                 t.group(1))) + ">"
+                    names.get(a) or a[2:-1] for a in re.findall(
+                        r"Lb[01]E|Li\d+E|j|y", t.group(1))) + ">"
     return mangled
 
 
@@ -961,7 +1233,8 @@ def r1b_paths(torch, tv, tid, gphi, origin, dx, chunk=1 << 22):
     """This run's cells on each path of R1b's cell_vjp: (cells with a
     gradient (tid >= 0, grad_phi != 0), of them in the plane case, seg_vjp
     calls: one per outside cell, two at a tie of its two edges). Weights
-    and segment distances in the kernel's float32 order (geometry.cuh)."""
+    and segment distances in the kernel's float32 order (geometry.cuh).
+    With gphi None, R1's: every cell with tid >= 0 counts."""
     from sdfgenfast_tpu_torch.ops import recompute as rc
     from sdfgenfast_tpu_torch.ops.geometry import gather_tri9
 
@@ -977,12 +1250,13 @@ def r1b_paths(torch, tv, tid, gphi, origin, dx, chunk=1 << 22):
         return d3(dd, dd)
 
     tri9 = tv.reshape(-1, 9).T
-    ft, fg = tid.reshape(-1), gphi.reshape(-1)
+    ft = tid.reshape(-1)
+    fg = None if gphi is None else gphi.reshape(-1)
     cells = inside = segs = 0
     for s in range(0, ft.numel(), chunk):
         n = min(chunk, ft.numel() - s)
         t = ft[s:s + n]
-        live = (t >= 0) & (fg[s:s + n] != 0)
+        live = t >= 0 if gphi is None else (t >= 0) & (fg[s:s + n] != 0)
         p = rc._cell_positions(s, n, tid.shape, origin, dx, tid.device)
         a, b, c = gather_tri9(tri9, t)
         x13 = [a[i] - c[i] for i in range(3)]
@@ -1002,6 +1276,15 @@ def r1b_paths(torch, tv, tid, gphi, origin, dx, chunk=1 << 22):
         inside += int((live & ins).sum())
         segs += int(out.sum()) + int((out & (dp == dq)).sum())
     return cells, inside, segs
+
+
+def r1_bound(paths, m, n):
+    """R1's bound at this run's paths (r1b_paths without a gradient): the
+    triangles read once, 9 B per cell (tid, parity, phi)."""
+    cells, inside, _ = paths
+    ops = (cells * OPS_R1_CELL + inside * OPS_R1_PLANE
+           + (cells - inside) * OPS_R1_EDGES)
+    return bound_ms(ops, 36 * m + 9 * n)
 
 
 def r1b_bound(paths, m, n):
@@ -1053,6 +1336,30 @@ def r1b_tori():
                              ("torus1024", torus_mesh(32, 16)))]
 
 
+def launch_device_ms(torch, fn, reps, pattern):
+    """{kernel: (mean device ms over its traced launches, count traced)} of
+    the kernels whose demangled name matches `pattern`, over `reps` calls
+    of fn under torch.profiler (the tracer may drop some launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0)
+        if t and re.search(pattern, e.key):  # a demangled signature
+            name = re.sub(r"\(.*", "", e.key.split("::")[-1])
+            out[name] = (t / e.count / 1e3, e.count)
+    return out
+
+
+def split_text(split):
+    return ", ".join(f"{name} {ms:.4f} ms ({count} traced)"
+                     for name, (ms, count) in split.items()) or "not traced"
+
+
 def r1b_dense_times(meshes=None, reps=10):
     """R1b alone (``recompute_backward``, CUDA events, the mean of `reps`
     calls) on r1b_inputs with seed 0 for each (label, mesh, grid) of
@@ -1064,7 +1371,6 @@ def r1b_dense_times(meshes=None, reps=10):
     ``python3 -c "import runpy; runpy.run_path('<this file>')
     ['r1b_dense_times']()"``. Prints one line per mesh."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from sdfgenfast_tpu_torch.ops import recompute as rc
 
@@ -1075,20 +1381,10 @@ def r1b_dense_times(meshes=None, reps=10):
         args = r1b_inputs(torch, device, mesh, grid.origin, grid.dx,
                           grid.shape, np.random.default_rng(0))
         ms = cuda_ms(torch, lambda: rc.recompute_backward(*args), reps)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                rc.recompute_backward(*args)
-            torch.cuda.synchronize()
-        split = []  # the mean of each kernel's traced launches
-        for e in prof.key_averages():
-            t = getattr(e, "device_time_total", 0)
-            if t and "vjp" in e.key:  # a demangled signature
-                name = re.sub(r"\(.*", "", e.key.split("::")[-1])
-                split.append(f"{name} {t / e.count / 1e3:.4f} ms "
-                             f"({e.count} traced)")
+        split = launch_device_ms(torch, lambda: rc.recompute_backward(*args),
+                                 reps, "vjp")
         print(f"R1b {label} ({len(mesh.tris)} triangles, {grid.shape}): "
-              f"{ms:.4f} ms; per launch: {', '.join(split) or 'not traced'}",
-              flush=True)
+              f"{ms:.4f} ms; per launch: {split_text(split)}", flush=True)
 
 
 def check_r1b_cases(torch, device, box, torus, torus_grid):
@@ -1152,7 +1448,7 @@ def differentiable_half(torch, device, label, mesh, grid, counters):
     """The differentiable path through ``models.SDFGenerator`` on one mesh:
     target = forward of the 0.95-scaled vertices; counters set to 0, one
     ``train_step``, counters read. Then, on that step's ids and parity: R1
-    against its twin (phi rtol 2e-6), R1b against its twin's autograd
+    against its twin (bit for bit), R1b against its twin's autograd
     gradient (1e-4 of the largest vertex gradient), R1b run twice bit for
     bit, and a central finite difference of the float64-summed loss along
     u = g/|g| against <g, u> = |g|, ids frozen, away from the surface: rtol
@@ -1198,10 +1494,11 @@ def differentiable_half(torch, device, label, mesh, grid, counters):
     phi = rc.recompute_forward(tv, tid, parity, origin, dx, upper)
     twin = rc.recompute_forward_reference(tv, tid, parity, origin, dx, upper)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(phi.cpu().numpy(), twin.cpu().numpy(),
-                               rtol=2e-6, atol=0, err_msg=f"{label} R1")
     r1_err = abs_err(phi, twin)
     r1_bits = int((bits(torch, phi) != bits(torch, twin)).sum())
+    if r1_bits:
+        raise AssertionError(f"{label} R1: {r1_bits} cells differ from the "
+                             f"twin (max|err| {r1_err:.3e})")
     gphi = ((2.0 / n) * (phi - target)).contiguous()
     g1 = rc.recompute_backward(tv, tid, parity, gphi, origin, dx, upper)
     g2 = rc.recompute_backward(tv, tid, parity, gphi, origin, dx, upper)
@@ -1292,7 +1589,8 @@ def differentiable_half(torch, device, label, mesh, grid, counters):
 
 def time_differentiable(torch, r, card, label):
     """Forward and forward+backward of one step, each beside the same path
-    with R1 / R1b swapped for their twins; R1 and R1b alone beside theirs."""
+    with R1 / R1b swapped for their twins; R1's twin and R1b and its twin
+    alone (R1 itself: k4_r1_times)."""
     from sdfgenfast_tpu_torch.ops import recompute as rc
 
     model, v0, target = r["model"], r["v0"], r["target"]
@@ -1320,8 +1618,6 @@ def time_differentiable(torch, r, card, label):
             times[key + "_twin"] = cuda_ms(torch, fn, 2)
         finally:
             rc.recompute_forward, rc.recompute_backward = kernels
-    times["r1"] = cuda_ms(torch, lambda: rc.recompute_forward(
-        tv, tid, parity, origin, dx, upper), 10)
     times["r1_twin"] = cuda_ms(torch, lambda: rc.recompute_forward_reference(
         tv, tid, parity, origin, dx, upper), 2)
     times["r1b"] = cuda_ms(torch, lambda: rc.recompute_backward(
@@ -1331,7 +1627,7 @@ def time_differentiable(torch, r, card, label):
     print(f"[{card}] {label} differentiable step: forward {times['forward']:.3f}"
           f" ms (twin R1 {times['forward_twin']:.3f} ms), forward+backward "
           f"{times['step']:.3f} ms (twin R1/R1b {times['step_twin']:.3f} ms); "
-          f"R1 {times['r1']:.3f} ms (twin {times['r1_twin']:.3f}), R1b "
+          f"R1 twin {times['r1_twin']:.3f} ms, R1b "
           f"{times['r1b']:.3f} ms (twin {times['r1b_twin']:.3f})", flush=True)
     return times
 
@@ -1400,8 +1696,10 @@ def main():
     k1 = check_k1(torch, device, box, box_grid, torus, torus_grid)
     k2 = check_k2(torch, device, *grids[256])
     k3_err = check_k3(torch, device)
-    k4_err, k4_ms, k4_plain = check_k4(torch, device, grids[256][1].shape)
+    k4_err, k4_plain = check_k4(torch, device,
+                                os.path.join(RESOURCES, cases[256][0]))
     check_r1b_cases(torch, device, box, torus, torus_grid)
+    terms_err = check_r1_cases(torch, device, box, torus, torus_grid)
     probe_err = check_probes(torch, device)
 
     # -- 4a. the binned path against the reference binary's goldens --------
@@ -1426,10 +1724,10 @@ def main():
               f"{cold:.3f} s, launches {call}", flush=True)
         # the pyramid (ops/vdt.py): the coarsest level's ladder (7 rounds
         # at 64^3, 8 at 128^3), 5 at the middle level, 7 at full resolution;
-        # 2 chamfer passes
+        # 2 chamfer passes in one K4 launch
         rounds = {256: 19, 512: 20}[n]
         if call != {"band_coefs": 1, "band_rows": 1, "round_phase": rounds,
-                    "chamfer": 2}:
+                    "chamfer": 1}:
             raise AssertionError(f"sphere82k {n}^3 launches {call}")
         for k, v in call.items():
             launches[k] += v
@@ -1459,6 +1757,7 @@ def main():
                           torus_phi)
 
     sphere = grids[256][0]
+    m_sphere = len(sphere.tris)
     batch = [box, torus, sphere]
     lo = np.min([m.bounds()[0] for m in batch], axis=0)
     hi = np.max([m.bounds()[1] for m in batch], axis=0)
@@ -1494,7 +1793,8 @@ def main():
         for name, c in sorted(sass_counts(sass).items()):
             print(f"  SASS {name}: FFMA {c['FFMA']}, FMUL {c['FMUL']}, "
                   f"FADD {c['FADD']}", flush=True)
-        for name, c in sorted(sass_inner_loops(sass).items()):
+        for name, c in sorted(sass_inner_loops(
+                sass, r"dense_stream|band_rows|chamfer_fused").items()):
             print(f"  SASS {name} inner loop: " + (
                 "none found" if c is None else
                 f"{c[0]} instructions, {c[1]} FP32, {c[2]} LDS"), flush=True)
@@ -1524,7 +1824,7 @@ def main():
     # -- 4d. the differentiable path: SDFGenerator.train_step, both halves --
     diff_counters = (band_kernel.band_coefs, band_kernel.band_rows,
                      vdt_kernel.round_phase, vdt_kernel.chamfer,
-                     dense.dense_stream,
+                     dense.dense_stream, recompute.recompute_terms,
                      recompute.recompute_forward, recompute.recompute_backward)
     diff = {
         "sphere82k": differentiable_half(torch, device, "sphere82k 256^3",
@@ -1541,6 +1841,10 @@ def main():
                           "recompute_backward"),
             "box36": ("dense_stream", "recompute_forward",
                       "recompute_backward")}
+    # R1's table launch where r1_config takes the shared form
+    for label, m in (("sphere82k", m_sphere), ("box36", len(box.tris))):
+        if recompute.r1_config(m)[0] == "shared":
+            need[label] += ("recompute_terms",)
     checks = list(launches.items()) + list(dense_launches.items()) + list(zip(
         ("batch K2 coefficients", "batch K2", "batch K3", "batch K4",
          "batch K1"), batch_launches)) + list(probe_launches.items()) + [
@@ -1557,9 +1861,19 @@ def main():
     r1b_work = {label: r1b_paths(torch, r["tv"], r["tid"], r["gphi"],
                                  *r["args"][:2])
                 for label, r in diff.items()}
+    r1_work = {label: r1b_paths(torch, r["tv"], r["tid"], None,
+                                *r["args"][:2])
+               for label, r in diff.items()}
+    box_tv = diff["box36"]["tv"]
+    terms_plain = cuda_ms(torch, lambda: recompute.recompute_terms_reference(
+        box_tv), 10)
     # keep the numbers only: the breakdowns below read peak device memory
     diff = {label: {k: r[k] for k in ("launches", "r1_err", "r1b_err")}
             for label, r in diff.items()}
+    torch.cuda.empty_cache()
+    # K4 and R1 queued behind the spin, min and median of three repeats
+    k4_r1 = k4_r1_times()
+    k4_ms = k4_r1["k4"][1]
     torch.cuda.empty_cache()
     for n, r in results.items():
         walls = []
@@ -1638,7 +1952,7 @@ def main():
     # the bounds at the shapes timed (see bound_ms)
     n_box, n_torus = int(np.prod(box_grid.shape)), int(np.prod(torus_grid.shape))
     n_256 = int(np.prod(grids[256][1].shape))
-    m_sphere = len(grids[256][0].tris)
+    m_box = len(box.tris)
     bounds = {
         # K1 at the share of pairs its cull evaluated in this run
         "dense_stream": k1_bound(n_box, len(box.tris), k1["evaluated_share"]),
@@ -1647,21 +1961,26 @@ def main():
         "band_coefs": k2["bounds"]["coefs"],
         "band_rows": k2["bounds"]["walk"],
         "vdt_round": k3_bound(grids[256][1].shape),
-        "chamfer": bound_ms(2 * n_256 * 26 * OPS_CHAMFER_OFFSET, 2 * 8 * n_256),
-        "recompute_phi": bound_ms(OPS_R1_CELL * n_256,
-                                  36 * m_sphere + 9 * n_256),
+        # all passes of a call: each cell read once and written once
+        "chamfer": bound_ms(2 * n_256 * 26 * OPS_CHAMFER_OFFSET, 8 * n_256),
+        "recompute_terms": bound_ms(OPS_R1_TERMS * m_box,
+                                    (36 + 4 * recompute.R1_TERMS) * m_box),
+        "recompute_phi": r1_bound(r1_work["sphere82k"], m_sphere, n_256),
         "recompute_vjp": r1b_bound(r1b_work["sphere82k"], m_sphere, n_256),
-        "recompute_phi_box36": bound_ms(OPS_R1_CELL * n_box,
-                                        36 * len(box.tris) + 9 * n_box),
+        "recompute_phi_box36": r1_bound(r1_work["box36"], m_box, n_box),
         "recompute_vjp_box36": r1b_bound(r1b_work["box36"], len(box.tris),
                                          n_box),
     }
     for label, key in (("sphere82k", ""), ("box36", "_box36")):
+        r1_cells, r1_inside, _ = r1_work[label]
         cells, inside, segs = r1b_work[label]
         t = diff_times[label]
-        print(f"[{card}] R1/R1b {label}: R1 {t['r1']:.4f} ms, bound "
+        r1_ms = k4_r1[f"r1_{label}"][1]
+        print(f"[{card}] R1/R1b {label}: R1 {r1_ms:.4f} ms (median), bound "
               f"{bounds['recompute_phi' + key][0]:.4f} ms "
-              f"({bounds['recompute_phi' + key][1]}); R1b {t['r1b']:.4f} ms, "
+              f"({bounds['recompute_phi' + key][1]}) at {r1_cells} cells with "
+              f"a triangle, {r1_inside} in the plane case; R1b "
+              f"{t['r1b']:.4f} ms, "
               f"bound {bounds['recompute_vjp' + key][0]:.4f} ms "
               f"({bounds['recompute_vjp' + key][1]}) at {cells} cells with a "
               f"gradient, {inside} in the plane case, {segs} segment "
@@ -1700,7 +2019,8 @@ def main():
             ("K2 band_rows tile walk", "band_rows", "256^3", k2t["walk"],
              k2t["plain"]),
             ("K3 round (stride 1)", "vdt_round", "256^3", k3_ms, k3_plain),
-            ("K4 chamfer (2 passes)", "chamfer", "256^3", k4_ms, k4_plain)):
+            ("K4 chamfer (2 passes, one launch)", "chamfer", "256^3", k4_ms,
+             k4_plain)):
         b, by = bounds[key]
         print(f"[{card}] {name} at {shape}: kernel {ms:.4f} ms, "
               f"plain torch {plain:.3f} ms, bound {b:.4f} ms ({by}), "
@@ -1787,7 +2107,7 @@ def main():
          "replaces": "sdfgenfast_tpu/pipeline.py:341",
          "launches": sphere["launches"]["recompute_forward"],
          "max_abs_err": sphere["r1_err"],
-         "ms": diff_times["sphere82k"]["r1"],
+         "ms": k4_r1["r1_sphere82k"][1],
          "plain_ms": diff_times["sphere82k"]["r1_twin"]},
         {"name": "recompute_vjp", "route": "cuda",
          "source": "sdfgenfast_tpu_torch/csrc/recompute.cu",
@@ -1796,12 +2116,21 @@ def main():
          "max_abs_err": sphere["r1b_err"],
          "ms": diff_times["sphere82k"]["r1b"],
          "plain_ms": diff_times["sphere82k"]["r1b_twin"]},
+        # R1's table launch on box36 (the shared form): its device time
+        # in the R1 call
+        {"name": "recompute_terms", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/recompute.cu",
+         "replaces": "sdfgenfast_tpu/pipeline.py:341",
+         "launches": diff["box36"]["launches"]["recompute_terms"],
+         "max_abs_err": terms_err,
+         "ms": k4_r1["r1_box36_split"]["recompute_terms_kernel"][0],
+         "plain_ms": terms_plain},
         {"name": "recompute_phi_box36", "route": "cuda",
          "source": "sdfgenfast_tpu_torch/csrc/recompute.cu",
          "replaces": "sdfgenfast_tpu/pipeline.py:341",
          "launches": diff["box36"]["launches"]["recompute_forward"],
          "max_abs_err": diff["box36"]["r1_err"],
-         "ms": diff_times["box36"]["r1"],
+         "ms": k4_r1["r1_box36"][1],
          "plain_ms": diff_times["box36"]["r1_twin"]},
         {"name": "recompute_vjp_box36", "route": "cuda",
          "source": "sdfgenfast_tpu_torch/csrc/recompute.cu",

@@ -5,7 +5,8 @@
 // package's and the port's), so a kernel built with --fmad=false matches the
 // PyTorch twin bit for bit. The pieces are exposed (the segment term with its
 // parameter and offset, the barycentric case) because R1b needs the closest
-// point that the distance was taken to, not only the distance.
+// point that the distance was taken to, not only the distance; R1 evaluates
+// only the pieces of each cell's path (recompute.cu's cell_d2).
 
 #pragma once
 
@@ -71,20 +72,4 @@ __device__ __forceinline__ TriangleCase triangle_case(
   r.ey = py - (r.w23 * ay + r.w31 * by + r.w12 * cy);
   r.ez = pz - (r.w23 * az + r.w31 * bz + r.w12 * cz);
   return r;
-}
-
-// geometry.point_triangle_distance_sq_soa, operation for operation.
-__device__ __forceinline__ float point_triangle_d2(
-    float px, float py, float pz, float ax, float ay, float az, float bx,
-    float by, float bz, float cx, float cy, float cz) {
-  const TriangleCase tc =
-      triangle_case(px, py, pz, ax, ay, az, bx, by, bz, cx, cy, cz);
-  const float din = d3(tc.ex, tc.ey, tc.ez, tc.ex, tc.ey, tc.ez);
-  const float d12 = seg_d2(px, py, pz, ax, ay, az, bx, by, bz);
-  const float d13 = seg_d2(px, py, pz, ax, ay, az, cx, cy, cz);
-  const float d23 = seg_d2(px, py, pz, bx, by, bz, cx, cy, cz);
-  const float d_edge = tc.w23 > 0.0f   ? fminf(d12, d13)
-                       : tc.w31 > 0.0f ? fminf(d12, d23)
-                                       : fminf(d13, d23);
-  return tc.inside ? din : d_edge;
 }

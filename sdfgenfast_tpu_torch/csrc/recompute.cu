@@ -8,10 +8,22 @@
 // evaluated again from the triangle's vertices, so the gradient reaches them.
 //
 // R1 (forward): phi = +-sqrt(max(d2, 1e-30)) with d2 the point-triangle
-// squared distance to triangle tid (geometry.cuh, the operation order of
+// squared distance to triangle tid (the operation order of
 // point_triangle_distance_sq_soa), `upper` where tid < 0, negated where the
 // parity is odd. Cell (i, j, k) sits at f32(i) * dx + origin, in world
-// coordinates, as in _recompute_phi. One thread per cell, k fastest.
+// coordinates, as in _recompute_phi. A thread takes chunks of four
+// consecutive cells (k fastest; wide loads and stores) or, for large
+// meshes, one cell at a time, walks (i, j, k) without dividing, and
+// evaluates only the path each cell takes: the plane projection's
+// weights, then its distance inside, or else the two segments that the
+// case selects (cell_d2). The triangle-only terms
+// (x13, x23, m13, m23, d, invdet and each edge's dv and max(|dv|^2,
+// 1e-30)) come, for small meshes, from a per-triangle table built by its
+// own launch (sdf_recompute_terms) and staged in shared memory, or are computed per cell from
+// the vertices (the faster for large meshes); the form per M is
+// ops/recompute.r1_config's. Every term takes the operations of
+// triangle_case and seg_closest (geometry.cuh), so phi keeps the bits of
+// point_triangle_distance_sq_soa.
 //
 // R1b (backward): the per-cell vector-Jacobian product into the (M, 9)
 // triangle-vertex gradient, by reverse-mode differentiation of R1's own
@@ -73,15 +85,16 @@
 // runs are then a measured property, not a guaranteed one (float64 keeps
 // the atomics' order far below a float32 ulp).
 //
-// Cell indices are 32-bit (unsigned) when n < 2^31 and 64-bit above, so R1's
-// (i, j, k) costs two 32-bit divisions, not two 64-bit ones; R1b divides
-// once per lane and then walks (i, j, k) 32 cells a step. R1b loads the
-// next step's id, gradient and parity before this step's cell_vjp.
+// Cell indices are 32-bit (unsigned) when n < 2^31 and 64-bit above. R1
+// divides once per thread and walks (i, j, k); R1b divides once per lane
+// and then walks (i, j, k) 32 cells a step. R1b loads the next step's id,
+// gradient and parity before this step's cell_vjp.
 //
-// Bound on the H100: R1 is ~110 FP32 operations per cell plus a 36-byte
-// gather of the triangle (cached: neighbouring cells share it) and 9 bytes of
-// traffic; R1b needs ~224 operations for a plane-case cell and ~216 for a
-// one-edge cell (chip_smoke.py's OPS_R1B_*; cell_vjp computes more: all
+// Bound on the H100: R1 is bytes, 9 per cell (tid, parity, phi) plus the
+// 36-byte triangles read once; a plane-case cell needs 58 FP32
+// operations with the table, an outside cell 96 with its two segments (two
+// divisions; chip_smoke.py's OPS_R1_*). R1b needs ~224 operations for a plane-case
+// cell and ~216 for a one-edge cell (chip_smoke.py's OPS_R1B_*; cell_vjp computes more: all
 // three segment distances, and plane_vjp and seg_vjp compute their forward
 // values again), and its sum, whose flush work is per run, not per cell. Built with --fmad=false, so R1
 // matches its PyTorch twin bit for bit.
@@ -97,41 +110,292 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kSlices = 32;  // row slices per block of the summing launch
 
-// Index: unsigned (n < 2^31) or unsigned long long
-template <typename Index>
-__device__ __forceinline__ void cell_world(Index n, int nj, int nk,
-                                           float ox, float oy, float oz,
-                                           float dx, float& x, float& y,
-                                           float& z) {
-  const int k = (int)(n % (Index)nk);
-  const Index r = n / (Index)nk;
-  const int j = (int)(r % (Index)nj);
-  const int i = (int)(r / (Index)nj);
-  x = (float)i * dx + ox;
-  y = (float)j * dx + oy;
-  z = (float)k * dx + oz;
+// R1's per-triangle table, kTerms floats (eight float4) per triangle, each
+// term computed with the operations triangle_case and seg_closest use:
+//   float4 0-2: a, b, c, invdet, m13, m23;
+//   float4 3-4: x13 = a - c, d; x23 = b - c, 0;
+//   float4 5-7: per edge ab, ac, bc (seg_d2(a, b), (a, c), (b, c)):
+//   dv = x2 - x1 and max(|dv|^2, 1e-30).
+constexpr int kTerms = 32;
+constexpr int kQuads = kTerms / 4;
+
+// The plane projection's triangle terms.
+struct Plane {
+  float a[3], b[3], c[3], x13[3], x23[3], m13, m23, d, invdet;
+};
+
+// every term from the nine vertex coordinates v
+__device__ __forceinline__ Plane plane_from_verts(const float* v) {
+  Plane P;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    P.a[q] = v[q];
+    P.b[q] = v[3 + q];
+    P.c[q] = v[6 + q];
+    P.x13[q] = P.a[q] - P.c[q];
+    P.x23[q] = P.b[q] - P.c[q];
+  }
+  P.m13 = d3(P.x13[0], P.x13[1], P.x13[2], P.x13[0], P.x13[1], P.x13[2]);
+  P.m23 = d3(P.x23[0], P.x23[1], P.x23[2], P.x23[0], P.x23[1], P.x23[2]);
+  P.d = d3(P.x13[0], P.x13[1], P.x13[2], P.x23[0], P.x23[1], P.x23[2]);
+  P.invdet = 1.0f / fmaxf(P.m13 * P.m23 - P.d * P.d, 1e-30f);
+  return P;
 }
 
-template <typename Index>
+// segment [x1, x2]'s dv = x2 - x1 and max(|dv|^2, 1e-30)
+__device__ __forceinline__ float4 edge_terms(const float* x1,
+                                             const float* x2) {
+  const float dvx = x2[0] - x1[0], dvy = x2[1] - x1[1], dvz = x2[2] - x1[2];
+  return make_float4(dvx, dvy, dvz,
+                     fmaxf(d3(dvx, dvy, dvz, dvx, dvy, dvz), 1e-30f));
+}
+
+// Where R1 takes a triangle's terms from (ops/recompute.R1_FORMS):
+// plane() gives the plane terms, edge(x1, x2, e) those of edge e (0: ab,
+// 1: ac, 2: bc) with endpoints x1, x2.
+// kShared: the whole table row, staged in shared memory.
+struct SharedTri {
+  const float4* row;
+  __device__ __forceinline__ Plane plane() const {
+    const float4 q0 = row[0], q1 = row[1], q2 = row[2], q3 = row[3],
+                 q4 = row[4];
+    return Plane{{q0.x, q0.y, q0.z}, {q0.w, q1.x, q1.y}, {q1.z, q1.w, q2.x},
+                 {q3.x, q3.y, q3.z}, {q4.x, q4.y, q4.z}, q2.z, q2.w, q3.w,
+                 q2.y};
+  }
+  __device__ __forceinline__ float4 edge(const float*, const float*,
+                                         int e) const {
+    return row[5 + e];
+  }
+};
+
+// kVerts: the nine vertex coordinates (36 bytes), every term computed.
+struct VertTri {
+  float v[9];
+  __device__ __forceinline__ Plane plane() const {
+    return plane_from_verts(v);
+  }
+  __device__ __forceinline__ float4 edge(const float* x1, const float* x2,
+                                         int) const {
+    return edge_terms(x1, x2);
+  }
+};
+
+enum PhiForm { kShared = 0, kVerts = 1 };
+
+template <int kForm>
+struct FormTri {
+  using type = SharedTri;
+};
+template <>
+struct FormTri<kVerts> {
+  using type = VertTri;
+};
+
+// triangle t's terms (t >= 0; zeros, nothing read, for t < 0)
+template <int kForm>
+__device__ __forceinline__ typename FormTri<kForm>::type load_tri(
+    int t, const float* __restrict__ tri, const float4* stab) {
+  typename FormTri<kForm>::type r{};
+  if constexpr (kForm == kShared) {
+    r.row = stab + (t >= 0 ? t : 0) * kQuads;
+  } else {
+    if (t >= 0) {
+#pragma unroll
+      for (int e = 0; e < 9; ++e) r.v[e] = __ldg(tri + 9LL * t + e);
+    }
+  }
+  return r;
+}
+
+// seg_closest's distance with dv and max(|dv|^2, 1e-30) from edge_terms
+__device__ __forceinline__ float seg_d2_terms(float px, float py, float pz,
+                                              const float* x1,
+                                              const float* x2, float4 dv) {
+  float t = d3(x2[0] - px, x2[1] - py, x2[2] - pz, dv.x, dv.y, dv.z) / dv.w;
+  t = fminf(fmaxf(t, 0.0f), 1.0f);
+  const float ddx = px - (t * x1[0] + (1.0f - t) * x2[0]);
+  const float ddy = py - (t * x1[1] + (1.0f - t) * x2[1]);
+  const float ddz = pz - (t * x1[2] + (1.0f - t) * x2[2]);
+  return d3(ddx, ddy, ddz, ddx, ddy, ddz);
+}
+
+// point_triangle_distance_sq_soa's d2, evaluating only the path the cell
+// takes: the plane projection's weights first; inside, its distance; else
+// the two segments that d_edge selects, fminf(first, second) with first
+// ab (w23 > 0 or w31 > 0) or ac, second ac (w23 > 0) or bc. The two
+// segments' endpoints are selected, not branched on, so lanes in
+// different outside cases evaluate two segments together. Every value
+// that reaches the result takes the twin's operations in its order, so
+// the result has its bits.
+template <typename Tri>
+__device__ __forceinline__ float cell_d2(float px, float py, float pz,
+                                         const Tri& tri) {
+  const Plane P = tri.plane();
+  const float x03x = px - P.c[0], x03y = py - P.c[1], x03z = pz - P.c[2];
+  const float pa = d3(P.x13[0], P.x13[1], P.x13[2], x03x, x03y, x03z);
+  const float pb = d3(P.x23[0], P.x23[1], P.x23[2], x03x, x03y, x03z);
+  const float w23 = P.invdet * (P.m23 * pa - P.d * pb);
+  const float w31 = P.invdet * (P.m13 * pb - P.d * pa);
+  const float w12 = 1.0f - w23 - w31;
+  if ((w23 >= 0.0f) && (w31 >= 0.0f) && (w12 >= 0.0f)) {
+    const float ex = px - (w23 * P.a[0] + w31 * P.b[0] + w12 * P.c[0]);
+    const float ey = py - (w23 * P.a[1] + w31 * P.b[1] + w12 * P.c[1]);
+    const float ez = pz - (w23 * P.a[2] + w31 * P.b[2] + w12 * P.c[2]);
+    return d3(ex, ey, ez, ex, ey, ez);
+  }
+  const bool ab = (w23 > 0.0f) || (w31 > 0.0f);  // first: ab, else ac
+  const bool ac = w23 > 0.0f;                    // second: ac, else bc
+  float x2f[3], x1s[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    x2f[q] = ab ? P.b[q] : P.c[q];
+    x1s[q] = ac ? P.a[q] : P.b[q];
+  }
+  return fminf(
+      seg_d2_terms(px, py, pz, P.a, x2f, tri.edge(P.a, x2f, ab ? 0 : 1)),
+      seg_d2_terms(px, py, pz, x1s, P.c, tri.edge(x1s, P.c, ac ? 1 : 2)));
+}
+
 __global__ void __launch_bounds__(kThreads)
-recompute_phi_kernel(const float* __restrict__ tri, const int* __restrict__ tid,
+recompute_terms_kernel(const float* __restrict__ tri, int m,
+                       float4* __restrict__ table) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= m) return;
+  float v[9];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) v[e] = tri[9LL * t + e];
+  const Plane P = plane_from_verts(v);
+  float4* row = table + (long long)t * kQuads;
+  row[0] = make_float4(P.a[0], P.a[1], P.a[2], P.b[0]);
+  row[1] = make_float4(P.b[1], P.b[2], P.c[0], P.c[1]);
+  row[2] = make_float4(P.c[2], P.invdet, P.m13, P.m23);
+  row[3] = make_float4(P.x13[0], P.x13[1], P.x13[2], P.d);
+  row[4] = make_float4(P.x23[0], P.x23[1], P.x23[2], 0.0f);
+  row[5] = edge_terms(P.a, P.b);
+  row[6] = edge_terms(P.a, P.c);
+  row[7] = edge_terms(P.b, P.c);
+}
+
+// phi of one cell (i, j, k) with id t, parity par and triangle terms tr
+template <typename Tri>
+__device__ __forceinline__ float cell_phi(int t, unsigned char par, int i,
+                                          int j, int k, const Tri& tr,
+                                          float ox, float oy, float oz,
+                                          float dx, float upper) {
+  float d = upper;
+  if (t >= 0) {
+    const float d2 = cell_d2((float)i * dx + ox, (float)j * dx + oy,
+                             (float)k * dx + oz, tr);
+    d = sqrtf(fmaxf(d2, 1e-30f));
+  }
+  return par ? -d : d;
+}
+
+// (i, j, k) += (si, sj, sk), a number of cells written as mixed-radix
+// digits (sj < nj, sk < nk), without dividing
+__device__ __forceinline__ void walk(int& i, int& j, int& k, int si, int sj,
+                                     int sk, int nj, int nk) {
+  k += sk;
+  if (k >= nk) {
+    k -= nk;
+    ++j;
+  }
+  j += sj;
+  if (j >= nj) {
+    j -= nj;
+    ++i;
+  }
+  i += si;
+}
+
+// `cells` as mixed-radix digits (si, sj, sk) of a (nj, nk) plane
+template <typename Index>
+__device__ __forceinline__ void digits(Index cells, Index plane, int nk,
+                                       int& si, int& sj, int& sk) {
+  const Index r = cells % plane;
+  si = (int)(cells / plane);
+  sj = (int)(r / (Index)nk);
+  sk = (int)(r % (Index)nk);
+}
+
+// (i, j, k) += one cell, k fastest
+__device__ __forceinline__ void next_cell(int& i, int& j, int& k, int nj,
+                                          int nk) {
+  if (++k == nk) {
+    k = 0;
+    if (++j == nj) {
+      j = 0;
+      ++i;
+    }
+  }
+}
+
+// R1. Thread g takes the chunks of kVec cells v = g, g + G, .. (G threads
+// in all). kVec = 4: an int4 of ids, a uchar4 of parities and a float4 of
+// phi per chunk (the wrapper passes 16-byte aligned ids and phi, 4-byte
+// aligned parities), the n % 4 cells past the last whole chunk to threads
+// 0-2, one each; kVec = 1: a cell a step, so that more threads gather
+// triangles at once (ops/recompute.r1_config picks per M). (i, j, k) of
+// the thread's first cell comes from one division; then it steps one cell
+// within a chunk and walks kVec G cells between chunks as mixed-radix
+// digits, without dividing.
+template <typename Index, int kForm, int kVec>
+__global__ void __launch_bounds__(kThreads)
+recompute_phi_kernel(const float* __restrict__ tri,
+                     const float4* __restrict__ table,
+                     const int* __restrict__ tid,
                      const unsigned char* __restrict__ parity, Index n,
                      int nj, int nk, float ox, float oy, float oz, float dx,
-                     float upper, float* __restrict__ phi) {
-  const Index step = (Index)gridDim.x * kThreads;
-  for (Index c = (Index)blockIdx.x * kThreads + threadIdx.x; c < n;
-       c += step) {
+                     float upper, int m, float* __restrict__ phi) {
+  static_assert(kVec == 1 || kVec == 4, "one or four cells a chunk");
+  extern __shared__ float4 stab[];
+  if (kForm == kShared) {
+    for (int e = threadIdx.x; e < m * kQuads; e += kThreads)
+      stab[e] = table[e];
+    __syncthreads();
+  }
+  const Index g = (Index)blockIdx.x * kThreads + threadIdx.x;
+  const Index threads = (Index)gridDim.x * kThreads;
+  const Index chunks = n / kVec;
+  const Index plane = (Index)nj * (Index)nk;
+  if (g < n - kVec * chunks) {  // the ragged tail
+    const Index c = kVec * chunks + g;
+    int i, j, k;
+    digits(c, plane, nk, i, j, k);
     const int t = tid[c];
-    float d = upper;
-    if (t >= 0) {
-      float x, y, z;
-      cell_world(c, nj, nk, ox, oy, oz, dx, x, y, z);
-      const float* v = tri + 9LL * t;
-      const float d2 = point_triangle_d2(x, y, z, v[0], v[1], v[2], v[3],
-                                         v[4], v[5], v[6], v[7], v[8]);
-      d = sqrtf(fmaxf(d2, 1e-30f));
+    phi[c] = cell_phi(t, parity[c], i, j, k,
+                      load_tri<kForm>(t, tri, stab), ox, oy, oz, dx,
+                      upper);
+  }
+  if (g >= chunks) return;
+  int ci, cj, ck, si, sj, sk;
+  digits(kVec * g, plane, nk, ci, cj, ck);
+  digits(kVec * threads, plane, nk, si, sj, sk);  // past n: unused
+  for (Index v = g; v < chunks; v += threads) {
+    if constexpr (kVec == 4) {
+      const int4 t4 = reinterpret_cast<const int4*>(tid)[v];
+      const uchar4 p4 = reinterpret_cast<const uchar4*>(parity)[v];
+      const int t[4] = {t4.x, t4.y, t4.z, t4.w};
+      const unsigned char par[4] = {p4.x, p4.y, p4.z, p4.w};
+      float out[4];
+      int i = ci, j = cj, k = ck;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        out[q] = cell_phi(t[q], par[q], i, j, k,
+                          load_tri<kForm>(t[q], tri, stab), ox, oy,
+                          oz, dx, upper);
+        next_cell(i, j, k, nj, nk);
+      }
+      reinterpret_cast<float4*>(phi)[v] =
+          make_float4(out[0], out[1], out[2], out[3]);
+    } else {
+      const int t = tid[v];
+      phi[v] = cell_phi(t, parity[v], ci, cj, ck,
+                        load_tri<kForm>(t, tri, stab), ox, oy, oz, dx,
+                        upper);
     }
-    phi[c] = parity[c] ? -d : d;
+    walk(ci, cj, ck, si, sj, sk, nj, nk);
   }
 }
 
@@ -551,15 +815,18 @@ vjp_parts_sum_kernel(const double* __restrict__ parts, int groups, int m9,
   out[col] = (float)s;
 }
 
+// blocks of kThreads threads for n work items: enough for n, at most four
+// times what the SMs hold at once with `smem` bytes of dynamic shared
+// memory a block
 template <typename Kernel>
-cudaError_t grid_blocks(Kernel kernel, long long n, int* blocks) {
+cudaError_t grid_blocks(Kernel kernel, long long n, int smem, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
+                                                        kThreads, smem);
   if (err != cudaSuccess) return err;
   const long long need = (n + kThreads - 1) / kThreads;
   const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1) * 4;
@@ -567,17 +834,60 @@ cudaError_t grid_blocks(Kernel kernel, long long n, int* blocks) {
   return cudaSuccess;
 }
 
+template <typename Index, int kForm, int kVec>
+cudaError_t launch_phi_form(const float* tri, const float4* table,
+                            const int* tid, const unsigned char* parity,
+                            long long n, int nj, int nk, float ox, float oy,
+                            float oz, float dx, float upper, int m,
+                            float* phi, cudaStream_t stream) {
+  const int smem = kForm == kShared ? m * kQuads * 16 : 0;
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  int blocks = 0;
+  const cudaError_t err = grid_blocks(recompute_phi_kernel<Index, kForm, kVec>,
+                                      (n + kVec - 1) / kVec, smem, &blocks);
+  if (err != cudaSuccess) return err;
+  recompute_phi_kernel<Index, kForm, kVec>
+      <<<blocks, kThreads, smem, stream>>>(tri, table, tid, parity, (Index)n,
+                                           nj, nk, ox, oy, oz, dx, upper, m,
+                                           phi);
+  return cudaGetLastError();
+}
+
+template <typename Index, int kForm>
+cudaError_t launch_phi_vec(int vec, const float* tri, const float4* table,
+                           const int* tid, const unsigned char* parity,
+                           long long n, int nj, int nk, float ox, float oy,
+                           float oz, float dx, float upper, int m, float* phi,
+                           cudaStream_t stream) {
+  if (vec == 4)
+    return launch_phi_form<Index, kForm, 4>(tri, table, tid, parity, n, nj,
+                                            nk, ox, oy, oz, dx, upper, m, phi,
+                                            stream);
+  if (vec == 1)
+    return launch_phi_form<Index, kForm, 1>(tri, table, tid, parity, n, nj,
+                                            nk, ox, oy, oz, dx, upper, m, phi,
+                                            stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename Index>
-cudaError_t launch_phi(const float* tri, const int* tid,
+cudaError_t launch_phi(int form, int vec, const float* tri,
+                       const float4* table, const int* tid,
                        const unsigned char* parity, long long n, int nj,
                        int nk, float ox, float oy, float oz, float dx,
-                       float upper, float* phi, cudaStream_t stream) {
-  int blocks = 0;
-  const cudaError_t err = grid_blocks(recompute_phi_kernel<Index>, n, &blocks);
-  if (err != cudaSuccess) return err;
-  recompute_phi_kernel<Index><<<blocks, kThreads, 0, stream>>>(
-      tri, tid, parity, (Index)n, nj, nk, ox, oy, oz, dx, upper, phi);
-  return cudaGetLastError();
+                       float upper, int m, float* phi, cudaStream_t stream) {
+  switch (form) {
+    case kShared:
+      return launch_phi_vec<Index, kShared>(vec, tri, table, tid, parity, n,
+                                            nj, nk, ox, oy, oz, dx, upper, m,
+                                            phi, stream);
+    case kVerts:
+      return launch_phi_vec<Index, kVerts>(vec, tri, table, tid, parity, n,
+                                           nj, nk, ox, oy, oz, dx, upper, m,
+                                           phi, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <bool kRows>
@@ -601,19 +911,37 @@ cudaError_t launch_vjp(const float* tri, const int* tid,
 
 }  // namespace
 
-extern "C" int sdf_recompute_phi(const float* tri, const int* tid,
-                                 const unsigned char* parity, long long n,
-                                 int nj, int nk, float ox, float oy, float oz,
-                                 float dx, float upper, float* phi,
+// R1's table: `table` ((m, 32) float32, 16-byte aligned) gets the
+// per-triangle terms of the m triangles `tri` ((m, 9) float32), one launch.
+extern "C" int sdf_recompute_terms(const float* tri, int m, float* table,
+                                   void* stream) {
+  if (m <= 0) return (int)cudaGetLastError();
+  recompute_terms_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      tri, m, reinterpret_cast<float4*>(table));
+  return (int)cudaGetLastError();
+}
+
+// R1: `form` is a PhiForm, `vec` (1 or 4) the cells a thread takes at a
+// time. kShared reads `table`, filled by sdf_recompute_terms, and takes
+// m <= 384 (48 KB); kVerts reads only `tri`. With vec = 4, tid and phi
+// 16-byte aligned and parity 4-byte.
+extern "C" int sdf_recompute_phi(const float* tri, const float* table,
+                                 const int* tid, const unsigned char* parity,
+                                 long long n, int nj, int nk, float ox,
+                                 float oy, float oz, float dx, float upper,
+                                 int m, int form, int vec, float* phi,
                                  void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
+  const float4* table4 = reinterpret_cast<const float4*>(table);
   return (int)(n < (1LL << 31)
-                   ? launch_phi<unsigned>(tri, tid, parity, n, nj, nk, ox, oy,
-                                          oz, dx, upper, phi, s)
-                   : launch_phi<unsigned long long>(tri, tid, parity, n, nj,
-                                                    nk, ox, oy, oz, dx, upper,
-                                                    phi, s));
+                   ? launch_phi<unsigned>(form, vec, tri, table4, tid, parity,
+                                          n, nj, nk, ox, oy, oz, dx, upper, m,
+                                          phi, s)
+                   : launch_phi<unsigned long long>(
+                         form, vec, tri, table4, tid, parity, n, nj, nk, ox,
+                         oy, oz, dx, upper, m, phi, s));
 }
 
 // M > 1024: the flushes go to `grad_tri` ((M, 9) float64, zeroed by the

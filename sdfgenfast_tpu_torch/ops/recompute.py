@@ -17,7 +17,9 @@ gradient reaches the vertices through the closest-point evaluation only
 ``tri_verts``, ``tid`` and ``parity`` for backward, the counterpart of the JAX
 package's ``jax.checkpoint`` with ``nothing_saveable`` per 2^20-cell chunk:
 
-- CUDA tensors: R1 (:func:`recompute_forward`) and R1b
+- CUDA tensors: R1 (:func:`recompute_forward`: only the path each cell's
+  closest point lies on, in the form :func:`r1_config` picks per triangle
+  count) and R1b
   (:func:`recompute_backward`) in ``csrc/recompute.cu``. R1b differentiates
   R1's float32 operations in reverse with autograd's rules (in exact
   arithmetic the closest point's weights: dphi/da = -sign * w_a * (p - cp)
@@ -30,8 +32,9 @@ package's ``jax.checkpoint`` with ``nothing_saveable`` per 2^20-cell chunk:
   per-cell gradients into float64, cast once.
 
 Cell (i, j, k) sits at ``f32(i) * dx + origin[0]`` (world coordinates), as
-in the JAX function. ``recompute_forward.launches`` and
-``recompute_backward.launches`` count kernel launches.
+in the JAX function. ``recompute_terms.launches`` (R1's table),
+``recompute_forward.launches`` and ``recompute_backward.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -42,16 +45,39 @@ import numpy as np
 import torch
 
 from ..kernels import build
-from .geometry import gather_tri9, point_triangle_distance_sq_soa
+from .geometry import (_at_least, _d3, gather_tri9,
+                       point_triangle_distance_sq_soa)
 from .vdt import sqrt_f32
 
-__all__ = ["CHUNK_CELLS", "VJP_ROWS_MAX_TRIS", "recompute_phi",
-           "recompute_stage", "recompute_forward",
+__all__ = ["CHUNK_CELLS", "R1_FORMS", "VJP_ROWS_MAX_TRIS", "r1_config",
+           "r1_launch", "recompute_phi", "recompute_stage",
+           "recompute_forward", "recompute_terms",
+           "recompute_terms_reference",
            "recompute_forward_reference", "recompute_backward",
            "recompute_backward_reference", "cell_vjp_reference",
            "vjp_ranges", "vjp_sum_groups"]
 
 CHUNK_CELLS = 1 << 20
+
+# R1 (csrc/recompute.cu): the triangle terms come from a per-triangle table
+# of R1_TERMS floats (recompute_terms) staged in shared memory ("shared"),
+# which holds at most R1_SHARED_CAP triangles (48 KB), or are computed per
+# cell from the vertices ("verts"); the order of R1_FORMS is the kernel's
+# PhiForm. A thread takes R1_CELLS_PER_THREAD cells at a time. r1_config
+# takes the first entry of R1_CONFIGS whose M bound holds, ("verts", 1)
+# past the last: at each mesh where chip_smoke.k4_r1_times timed every
+# (form, cells a thread), the fastest (PERF.md section 6; H100): box36 (M
+# = 36, 256 x 341 x 425) ("shared", 4); tori of 64 and 128 triangles
+# (256 x 256 x 75) ("shared", 1); tori of 192-384 and 1024 triangles
+# ("verts", 4); sphere82k ("verts", 1), where gathering scattered
+# triangles takes the time and more threads keep more gathers in flight.
+# M from 37 to 63, from 129 to 191 and from 385 to 1023 is not measured.
+R1_TERMS = 32
+R1_FORMS = ("shared", "verts")
+R1_CELLS_PER_THREAD = (1, 4)
+R1_SHARED_CAP = 384
+R1_CONFIGS = ((36, ("shared", 4)), (128, ("shared", 1)),
+              (1024, ("verts", 4)))
 
 # R1b's split of the cells into contiguous warp ranges (csrc/recompute.cu):
 # at least VJP_MIN_SPAN cells a range, at most VJP_MAX_RANGES ranges, three
@@ -205,20 +231,101 @@ def _launch(entry: str, tensors, tid, origin, dx: float, tail, out):
             out.data_ptr(), stream), entry)
 
 
+def r1_config(m: int):
+    """R1's (form, cells per thread) at m triangles (R1_CONFIGS)."""
+    return next((c for top, c in R1_CONFIGS if m <= top), ("verts", 1))
+
+
+def recompute_terms_reference(tri_verts):
+    """Plain-torch twin of :func:`recompute_terms`: the terms with
+    point_triangle_distance_sq_soa's operations."""
+    a, b, c = (tuple(tri_verts[:, r, q] for q in range(3)) for r in range(3))
+    x13 = tuple(a[q] - c[q] for q in range(3))
+    x23 = tuple(b[q] - c[q] for q in range(3))
+    m13, m23, d = _d3(*x13, *x13), _d3(*x23, *x23), _d3(*x13, *x23)
+    invdet = 1.0 / _at_least(m13 * m23 - d * d, 1e-30)
+    cols = [*a, *b, *c, invdet, m13, m23, *x13, d, *x23,
+            torch.zeros_like(m13)]
+    for x1, x2 in ((a, b), (a, c), (b, c)):
+        dv = tuple(x2[q] - x1[q] for q in range(3))
+        cols += [*dv, _at_least(_d3(*dv, *dv), 1e-30)]
+    return torch.stack(cols, 1)
+
+
+def recompute_terms(tri_verts):
+    """R1's per-triangle table, (M, R1_TERMS) float32 from (M, 3, 3)
+    float32 vertices: a, b, c, invdet, m13, m23; x13 = a - c, d; x23 = b -
+    c, 0; per edge ab, ac, bc: dv = x2 - x1 and max(|dv|^2, 1e-30); each
+    with the operations of triangle_case and seg_closest (geometry.cuh).
+    CUDA: one launch of recompute_terms_kernel. CPU:
+    :func:`recompute_terms_reference`."""
+    if (tri_verts.dtype != torch.float32 or tri_verts.dim() != 3
+            or tuple(tri_verts.shape[1:]) != (3, 3)):
+        raise ValueError(f"tri_verts must be (M, 3, 3) float32, got "
+                         f"{tuple(tri_verts.shape)} {tri_verts.dtype}")
+    if tri_verts.device.type == "cpu":
+        return recompute_terms_reference(tri_verts)
+    if tri_verts.device.type != "cuda":
+        raise ValueError(f"recompute_terms: unsupported device "
+                         f"{tri_verts.device}")
+    tri_verts = tri_verts.contiguous()
+    table = torch.empty((tri_verts.shape[0], R1_TERMS), dtype=torch.float32,
+                        device=tri_verts.device)
+    with torch.cuda.device(tri_verts.device):
+        build.check(build.library().sdf_recompute_terms(
+            tri_verts.data_ptr(), tri_verts.shape[0], table.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "sdf_recompute_terms")
+    recompute_terms.launches += 1
+    return table
+
+
+recompute_terms.launches = 0
+
+
+def _aligned(x, nbytes: int):
+    """`x` contiguous, at an address that is a multiple of `nbytes` (a copy
+    where a view starts elsewhere)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % nbytes == 0 else x.clone()
+
+
 def recompute_forward(tri_verts, tid, parity, origin, dx: float,
                       upper: float):
     """Signed phi (ni, nj, nk) float32 from the frozen ids and parity.
-    CUDA: one R1 launch. CPU: :func:`recompute_forward_reference`."""
+    CUDA: R1 in :func:`r1_config`'s form (:func:`r1_launch`). CPU:
+    :func:`recompute_forward_reference`."""
     device = _check(tri_verts, tid, parity)
     if device.type == "cpu":
         return recompute_forward_reference(tri_verts, tid, parity, origin,
                                            dx, upper)
     if device.type != "cuda":
         raise ValueError(f"recompute_forward: unsupported device {device}")
-    tri_verts, tid, parity = (x.contiguous() for x in (tri_verts, tid, parity))
+    return r1_launch(tri_verts, tid, parity, origin, dx, upper,
+                     *r1_config(tri_verts.shape[0]))
+
+
+def r1_launch(tri_verts, tid, parity, origin, dx: float, upper: float,
+              form: str, cells_per_thread: int):
+    """R1 on CUDA tensors: the triangle terms from `form` (one of R1_FORMS;
+    "shared" first builds the table, :func:`recompute_terms`),
+    `cells_per_thread` (one of R1_CELLS_PER_THREAD) cells a thread at a
+    time. The cells' launch is counted in ``recompute_forward.launches``."""
+    device = _check(tri_verts, tid, parity)
+    m = tri_verts.shape[0]
+    if (device.type != "cuda" or form not in R1_FORMS
+            or cells_per_thread not in R1_CELLS_PER_THREAD
+            or (form == "shared" and m > R1_SHARED_CAP)):
+        raise ValueError(f"r1_launch: form {form!r}, {cells_per_thread} "
+                         f"cells a thread at {m} triangles on {device}")
+    tri_verts = tri_verts.contiguous()
+    tid = _aligned(tid, 4 * cells_per_thread)
+    parity = _aligned(parity, cells_per_thread)
+    table = (recompute_terms(tri_verts) if form == "shared" and m > 0 else
+             torch.empty((0, R1_TERMS), dtype=torch.float32, device=device))
     phi = torch.empty(tid.shape, dtype=torch.float32, device=device)
-    _launch("sdf_recompute_phi", (tri_verts, tid, parity), tid, origin, dx,
-            (float(upper),), phi)
+    _launch("sdf_recompute_phi", (tri_verts, table, tid, parity), tid, origin,
+            dx, (float(upper), m, R1_FORMS.index(form), cells_per_thread),
+            phi)
     recompute_forward.launches += 1
     return phi
 

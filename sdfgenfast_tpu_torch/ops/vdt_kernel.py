@@ -17,7 +17,7 @@ from ..kernels import build
 from .vdt import _jacobi_round, _level_pos_axes, chamfer_relax, chamfer_steps
 
 __all__ = ["round_phase", "round_phase_reference", "chamfer",
-           "chamfer_reference"]
+           "chamfer_reference", "chamfer_chunks"]
 
 
 def _check_state(state):
@@ -85,10 +85,24 @@ def chamfer_reference(phi, dx: float, passes: int = 2):
     return chamfer_relax(phi, dx, passes)
 
 
+# K4 (csrc/chamfer.cu) fuses up to CHAMFER_MAX_PASSES passes in a launch
+# (the Pallas kernel's cap, vdt_pallas.py:352).
+CHAMFER_MAX_PASSES = 4
+
+
+def chamfer_chunks(passes: int):
+    """The fused pass counts of K4's launches for `passes` passes: as many
+    CHAMFER_MAX_PASSES as fit, then the rest; none for passes <= 0."""
+    passes = max(int(passes), 0)
+    full, rest = divmod(passes, CHAMFER_MAX_PASSES)
+    return [CHAMFER_MAX_PASSES] * full + ([rest] if rest else [])
+
+
 def chamfer(phi, dx: float, passes: int = 2):
     """`passes` 26-offset min-plus relaxation passes over a (ni, nj, nk)
-    float32 field. CUDA: one K4 launch per pass into ping-pong buffers.
-    CPU: :func:`chamfer_reference`."""
+    float32 field, into a new tensor. CUDA: one K4 launch per
+    :func:`chamfer_chunks` entry (one launch for passes <= 4), fused passes
+    marching i-planes through shared memory. CPU: :func:`chamfer_reference`."""
     if phi.dtype != torch.float32 or phi.dim() != 3 or not phi.is_contiguous():
         raise ValueError(f"chamfer: phi must be contiguous (ni, nj, nk) "
                          f"float32, got {tuple(phi.shape)} {phi.dtype}")
@@ -96,19 +110,21 @@ def chamfer(phi, dx: float, passes: int = 2):
         return chamfer_reference(phi, dx, passes)
     if phi.device.type != "cuda":
         raise ValueError(f"chamfer: unsupported device {phi.device}")
-    ni, nj, nk = phi.shape
+    if phi.numel() == 0:
+        return phi.clone()
     s1, s2, s3 = chamfer_steps(dx)
     lib = build.library()
     stream = torch.cuda.current_stream(phi.device).cuda_stream
+    chunks = chamfer_chunks(passes)
 
-    def launch(_, src, dst):
+    def launch(i, src, dst):
         with torch.cuda.device(phi.device):
-            build.check(lib.sdf_chamfer_pass(src.data_ptr(), dst.data_ptr(),
-                                             ni, nj, nk, s1, s2, s3, stream),
-                        "sdf_chamfer_pass")
+            build.check(lib.sdf_chamfer(src.data_ptr(), dst.data_ptr(),
+                                        *phi.shape, chunks[i], s1, s2, s3,
+                                        stream), "sdf_chamfer")
         chamfer.launches += 1
 
-    return _ping_pong(phi, passes, launch)
+    return _ping_pong(phi, len(chunks), launch)
 
 
 chamfer.launches = 0

@@ -1,5 +1,13 @@
-"""R1b's summation order (``csrc/recompute.cu``), transcribed in torch on
-the CPU, against the plain twin ``recompute_backward_reference``.
+"""R1b's summation order and R1's per-path evaluation (``csrc/recompute.cu``),
+transcribed in torch on the CPU, against the plain twins
+``recompute_backward_reference`` and ``recompute_forward_reference``.
+
+R1 (at the end of the file): the per-triangle table as
+``recompute_terms_kernel`` builds it, ``cell_d2``'s paths (each cell's
+plane weights, then only the projection's distance or the two segments its
+case selects) and the kernel's walk of (i, j, k) in chunks of four cells;
+bar: bit-equal to the twin, and every cell visited once with the (i, j, k)
+of the division.
 
 The per-cell float32 terms are the twin's own (``cell_vjp_reference``, the
 autograd terms the kernel reproduces); the transcription sums them as
@@ -22,6 +30,7 @@ import torch
 
 from sdfgenfast_tpu_torch.ops import dense as pdense
 from sdfgenfast_tpu_torch.ops import recompute as prc
+from sdfgenfast_tpu_torch.ops import vdt as PV
 from sdfgenfast_tpu_torch.testing import box36
 
 torch.set_num_threads(1)
@@ -351,3 +360,247 @@ def test_box36_is_the_benchmark_box():
         for e in ((a, b), (b, c), (c, a)):
             edges[e] = edges.get(e, 0) + 1
     assert all(edges.get((b, a)) == 1 for a, b in edges)
+
+
+# -- R1 (recompute_phi_kernel): the per-triangle table, the per-path
+# evaluation and the walk of (i, j, k), transcribed ----------------------
+
+
+def _d3(u, v):
+    return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+
+
+def r1_table(tv):
+    """recompute_terms_kernel's (M, 32) table, from the wrapper on the CPU
+    (its twin): a, b, c, invdet, m13, m23; x13, d; x23, 0; per edge ab,
+    ac, bc: dv = x2 - x1 and max(|dv|^2, 1e-30)."""
+    launches = prc.recompute_terms.launches
+    table = prc.recompute_terms(tv)
+    assert prc.recompute_terms.launches == launches
+    assert table.shape == (tv.shape[0], prc.R1_TERMS)
+    return table
+
+
+@pytest.mark.parametrize("m", [0, 1, 16])
+def test_recompute_terms_columns(m):
+    """The table's columns from the vertices, each with triangle_case's and
+    seg_closest's operations (x13 = a - c, m13 = |x13|^2, ..., invdet =
+    1 / max(m13 m23 - d^2, 1e-30), each edge's dv and max(|dv|^2, 1e-30)),
+    on triangles with a zero-area one among them; bad input raises."""
+    tv = torch.from_numpy(_r1_mesh()[:m].copy())
+    got = r1_table(tv).numpy()
+    v = tv.numpy()
+    a, b, c = v[:, 0], v[:, 1], v[:, 2]
+
+    def d3(u, w):
+        return (u[:, 0] * w[:, 0] + u[:, 1] * w[:, 1]) + u[:, 2] * w[:, 2]
+
+    x13, x23 = a - c, b - c
+    m13, m23, d = d3(x13, x13), d3(x23, x23), d3(x13, x23)
+    tiny = np.float32(1e-30)
+    want = [a, b, c, (np.float32(1) / np.maximum(m13 * m23 - d * d, tiny)
+                      )[:, None], m13[:, None], m23[:, None], x13, d[:, None],
+            x23, np.zeros((m, 1), np.float32)]
+    for x1, x2 in ((a, b), (a, c), (b, c)):
+        dv = x2 - x1
+        want += [dv, np.maximum(d3(dv, dv), tiny)[:, None]]
+    want = np.concatenate(want, 1).astype(np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    with pytest.raises(ValueError):
+        prc.recompute_terms(tv.double())
+    with pytest.raises(ValueError):
+        prc.recompute_terms(tv.reshape(-1, 9))
+
+
+def _seg_d2(p, x1, x2, dv, m2c):
+    """seg_d2_terms: seg_closest's distance with dv and m2c from the
+    table."""
+    t = _d3(tuple(x2[q] - p[q] for q in range(3)), dv) / m2c
+    t = torch.minimum(torch.maximum(t, torch.tensor(0.0)), torch.tensor(1.0))
+    dd = tuple(p[q] - (t * x1[q] + (1.0 - t) * x2[q]) for q in range(3))
+    return _d3(dd, dd)
+
+
+def r1_transcribed(tv, tid, parity, origin, dx, upper):
+    """R1 as cell_d2 evaluates it (the "shared" form: every term from the
+    table; the "verts" form computes them per cell with the same
+    operations): the plane projection's weights; the projection's distance
+    for the inside cells only; for the outside cells, the two segments
+    that their case selects, endpoints and edge terms picked per cell.
+    Returns (phi, per-path cell counts)."""
+    table = r1_table(tv)
+    flat = tid.reshape(-1)
+    n = flat.numel()
+    p_all = prc._cell_positions(0, n, tid.shape, origin, dx, "cpu")
+    live = torch.nonzero(flat >= 0)[:, 0]
+    T = table[flat[live].long()]
+    p = tuple(x[live] for x in p_all)
+
+    def col(i, rows=slice(None)):
+        return T[rows, i]
+
+    c = (col(6), col(7), col(8))
+    x03 = tuple(p[q] - c[q] for q in range(3))
+    pa = _d3((col(12), col(13), col(14)), x03)
+    pb = _d3((col(16), col(17), col(18)), x03)
+    m13, m23, d, invdet = col(10), col(11), col(15), col(9)
+    w23 = invdet * (m23 * pa - d * pb)
+    w31 = invdet * (m13 * pb - d * pa)
+    w12 = 1.0 - w23 - w31
+    inside = (w23 >= 0.0) & (w31 >= 0.0) & (w12 >= 0.0)
+    d2 = torch.full((len(live),), float("nan"))
+    counts = {}
+    rows = torch.nonzero(inside)[:, 0]
+    r = rows
+    e = tuple(p[q][r] - (w23[r] * col(q, r) + w31[r] * col(3 + q, r)
+                         + w12[r] * col(6 + q, r)) for q in range(3))
+    d2[r] = _d3(e, e)
+    counts["inside"] = len(r)
+    # outside: the first segment ab (w23 > 0 or w31 > 0) or ac, the
+    # second ac (w23 > 0) or bc, endpoints and edge terms selected
+    r = torch.nonzero(~inside)[:, 0]
+    pr = tuple(x[r] for x in p)
+    ab, ac = (w23[r] > 0.0) | (w31[r] > 0.0), w23[r] > 0.0
+    a, b, cr = (tuple(col(o + q, r) for q in range(3)) for o in (0, 3, 6))
+    x2f = tuple(torch.where(ab, b[q], cr[q]) for q in range(3))
+    x1s = tuple(torch.where(ac, a[q], b[q]) for q in range(3))
+    ef = [torch.where(ab, col(20 + q, r), col(24 + q, r)) for q in range(4)]
+    es = [torch.where(ac, col(24 + q, r), col(28 + q, r)) for q in range(4)]
+    d2[r] = torch.minimum(_seg_d2(pr, a, x2f, tuple(ef[:3]), ef[3]),
+                          _seg_d2(pr, x1s, cr, tuple(es[:3]), es[3]))
+    counts["w23"], counts["w31"] = int(ac.sum()), int((ab & ~ac).sum())
+    counts["rest"] = int((~ab).sum())
+    assert not bool(d2.isnan().any())
+    dist = torch.full((n,), float(upper))
+    dist[live] = PV.sqrt_f32(torch.maximum(d2, torch.tensor(1e-30)))
+    flat_par = parity.reshape(-1)
+    phi = torch.where(flat_par, -dist, dist).reshape(tid.shape)
+    counts["w_zero"] = int(((w23 == 0) | (w31 == 0) | (w12 == 0)).sum())
+    counts["w_zero_inside"] = int((inside & ((w23 == 0) | (w31 == 0)
+                                             | (w12 == 0))).sum())
+    return phi, counts
+
+
+def _r1_mesh():
+    """Triangles in world coordinates: the unit right triangle (weights 1 -
+    x - y, x, y at a cell (x, y, z), exact on a grid of quarters), a
+    point, a segment (two equal vertices), three collinear vertices, and
+    random ones."""
+    rng = np.random.default_rng(11)
+    special = np.array([
+        [[0, 0, 0], [1, 0, 0], [0, 1, 0]],
+        [[0.5, 0.25, 0.5]] * 3,
+        [[0, 0, 0.25], [0, 0, 0.25], [1, 0.5, 0.25]],
+        [[-0.5, 0, 0], [0, 0.5, 0], [0.5, 1.0, 0]],
+    ], np.float32)
+    rand = (rng.normal(size=(12, 3, 3)) * 0.7).astype(np.float32)
+    return np.concatenate([special, rand])
+
+
+@pytest.mark.parametrize("shape", [(9, 10, 11), (8, 12, 7), (5, 6, 45)])
+def test_r1_per_path_bit_equal_to_twin(shape):
+    """The transcription of R1's table and per-path evaluation equals
+    recompute_forward_reference bit for bit: cells exactly on w = 0
+    boundaries (the right triangle at quarter steps), zero-area triangles
+    (a point, a segment, collinear vertices) and tid < 0 cells included;
+    every path is taken."""
+    rng = np.random.default_rng(sum(shape))
+    tv = torch.from_numpy(_r1_mesh())
+    m = tv.shape[0]
+    n = int(np.prod(shape))
+    # the right triangle on half the cells, the degenerate ones often
+    tid = np.where(rng.random(n) < 0.5, 0, rng.integers(0, m, n))
+    tid = np.where(rng.random(n) < 0.15, rng.integers(1, 4, n), tid)
+    tid[rng.random(n) < 0.05] = -1
+    tid[:7] = -1
+    tid = torch.from_numpy(tid.astype(np.int32).reshape(shape))
+    parity = torch.from_numpy(rng.random(shape) < 0.5)
+    origin, dx = (-0.5, -0.5, -0.25), 0.25
+    upper = float(np.float32(sum(shape)) * np.float32(dx))
+    got, counts = r1_transcribed(tv, tid, parity, origin, dx, upper)
+    want = prc.recompute_forward_reference(tv, tid, parity, origin, dx, upper)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.numpy().view(np.int32))
+    assert min(counts["inside"], counts["w23"], counts["w31"],
+               counts["rest"], counts["w_zero_inside"]) > 0, counts
+    assert counts["w_zero"] > counts["w_zero_inside"], counts
+
+
+def r1_walk(n, nj, nk, threads, vec):
+    """recompute_phi_kernel's cells as its threads visit them, `vec` (4 or
+    1) cells a chunk: thread g divides cell vec * g into (i, j, k) once,
+    then steps one cell at a time within a chunk (next_cell) and walks vec
+    * threads cells between chunks as mixed-radix digits; the n % vec tail
+    cells go to threads 0 .. n % vec - 1 (by division). Returns {cell:
+    (i, j, k)} and the visit count."""
+    plane = nj * nk
+
+    def digits(c):
+        return c // plane, c % plane // nk, c % plane % nk
+
+    def walk(ijk, d):
+        i, j, k = ijk
+        k += d[2]
+        if k >= nk:
+            k, j = k - nk, j + 1
+        j += d[1]
+        if j >= nj:
+            j, i = j - nj, i + 1
+        return i + d[0], j, k
+
+    def next_cell(ijk):
+        i, j, k = ijk
+        k += 1
+        if k == nk:
+            k, j = 0, j + 1
+            if j == nj:
+                j, i = 0, i + 1
+        return i, j, k
+
+    seen, visits = {}, 0
+    chunks = n // vec
+    for g in range(n - vec * chunks):
+        c = vec * chunks + g
+        seen[c] = digits(c)
+        visits += 1
+    for g in range(min(threads, chunks)):
+        base = digits(vec * g)
+        for v in range(g, chunks, threads):
+            ijk = base
+            for q in range(vec):
+                seen[vec * v + q] = ijk
+                visits += 1
+                ijk = next_cell(ijk)
+            base = walk(base, digits(vec * threads))
+    return seen, visits
+
+
+@pytest.mark.parametrize("shape,threads", [((3, 5, 1), 2), ((4, 3, 7), 3),
+                                           ((3, 4, 31), 5), ((2, 9, 33), 1),
+                                           ((5, 7, 3), 4), ((2, 3, 425), 7),
+                                           ((9, 1, 2), 3), ((1, 1, 3), 2)])
+def test_r1_walked_cell_index_matches_division(shape, threads):
+    """Every cell is visited once, with the (i, j, k) of the division, at
+    four cells and one cell a thread: chunks that cross rows and planes,
+    nk below 4, a ragged tail, a stride of several planes."""
+    n = int(np.prod(shape))
+    for vec in prc.R1_CELLS_PER_THREAD:
+        seen, visits = r1_walk(n, shape[1], shape[2], threads, vec)
+        assert visits == n and sorted(seen) == list(range(n))
+        for c, ijk in seen.items():
+            assert ijk == np.unravel_index(c, shape)
+
+
+@pytest.mark.parametrize("m,want", [(1, ("shared", 4)), (36, ("shared", 4)),
+                                    (37, ("shared", 1)), (128, ("shared", 1)),
+                                    (129, ("verts", 4)), (1024, ("verts", 4)),
+                                    (1025, ("verts", 1)),
+                                    (81920, ("verts", 1))])
+def test_r1_config_by_triangle_count(m, want):
+    """r1_config follows R1_CONFIGS' bounds, and every configuration it
+    can pick is one that r1_launch takes (the shared table within its
+    capacity)."""
+    assert prc.r1_config(m) == want
+    form, vec = want
+    assert form in prc.R1_FORMS and vec in prc.R1_CELLS_PER_THREAD
+    assert form != "shared" or m <= prc.R1_SHARED_CAP
