@@ -15,7 +15,9 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      pre-chamfer field, random and ragged fields and thin grids; R1 bit
      for bit in each of its forms on torus1024, a ragged grid with holes
      and degenerate triangles; R1b on both sides of its M = 1024 dispatch,
-     the probes P1-P4; R1/R1b on the step's own fields in phase 4d);
+     the probes P1-P4, P3 and P4 also off the tool's shapes (one block,
+     odd and unaligned tiles, ragged arrays, n = 0); R1/R1b on the step's
+     own fields in phase 4d);
   4. the main path, both halves. Binned: ``generate_from_file`` on the
      81,920-triangle sphere at 256^3 and 512^3, held against the reference
      binary's sparse goldens (bars of tests/test_parity_golden.py). Dense:
@@ -23,8 +25,10 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      goldens, box36 at 256 x 341 x 425 and a 1024-triangle torus at
      256 x 256 x 75 (K1 at the dense cap) held against the binned path, and
      a small ``generate_sdf_batch``. The probe tool
-     (``tools.micro_bench.run``, with the SASS instruction counts of its
-     loops, and of K1's and K2's inner loops). The differentiable path: one
+     (``tools.micro_bench.run``: its launch counts, one CTA per TPU grid
+     step in P3, the SASS instruction counts of its loops and the bulk
+     copies, barriers and fences of P3 and P4, and K1's and K2's inner
+     loops). The differentiable path: one
      ``models.SDFGenerator.train_step`` on sphere82k at 256^3 (binned) and
      box36 (dense, K1), R1/R1b against their twins and a finite difference
      of the loss. Each path's launch counters are set to 0 just before it
@@ -32,9 +36,12 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
   5. wall time per call (median and min of warm calls, host work and the
      copy back included), each kernel's time next to its twin's (K4 and
      R1 queued behind a spin, min and median of three repeats:
-     ``k4_r1_times``, which also times another checkout's package), and
-     the differentiable step's forward and forward+backward next to the
-     same step with R1/R1b swapped for their twins.
+     ``k4_r1_times``, which also times another checkout's package; P3 and
+     P4 the same way beside torch's own x * 2 and x + 1, and one call at a
+     time as the tool timed them before: ``probe_times``, which does too),
+     and the differentiable step's forward and forward+backward next to the
+     same step with R1/R1b swapped for their twins. Every kernel's time must
+     be at least its bound.
 
 Prints one JSON line of per-kernel results, then the card line, then, as the
 last line, ``{"ok": true, "device": {...}}``. Exits non-zero on any failure.
@@ -131,13 +138,19 @@ def seeded_state(torch, shape, dx, seed, device, n_seed=20000):
     return st
 
 
-# Peak rates of one H100 SXM (NVIDIA's data sheet, at the 700 W limit) for
-# the bounds: FP32 outside the tensor cores and HBM3.
-PEAK_FP32 = 67e12
+# Peak rates of one H100 SXM at the 700 W limit, for the bounds. FP32: the
+# card issues at most 132 SMs x 128 lanes x 1.98 GHz = 33.5e12 FP32
+# instructions a second outside the tensor cores. The data sheet's 67
+# TFLOP/s is that rate with an FMA counted as two operations; every port
+# kernel is built --fmad=false, so each multiply and each add is its own
+# instruction, and an operation below costs one. Bytes: HBM3 at 3.35 TB/s
+# (data sheet).
+PEAK_FP32_ISSUE = 33.5e12
 PEAK_BYTES = 3.35e12
-# FP32 operations per unit of work, by count of each kernel's formula: a
-# (cell, triangle) pair of the separable dense distance, a (cell,
-# candidate) pair of the band kernel, a triangle of its coefficient pass
+# FP32 operations (instructions) per unit of work, by count of each
+# kernel's formula: a (cell, triangle) pair of the separable dense distance,
+# a (cell, candidate) pair of the band kernel's walk and a (row of 8 cells,
+# candidate) pair of its row halves, a triangle of its coefficient pass
 # (band_coefs_kernel's sums, products, clamps, two divisions and rsqrt), a
 # donor of a jump-flood round (3 subtractions, 3 products, 2 sums, 1
 # compare), an offset of a chamfer pass (1 add, 1 min), a triangle of R1's
@@ -146,7 +159,21 @@ OPS_DENSE_PAIR = 45
 # the dense pair's plane test alone, for a pair the cull skips: h = (cx*x +
 # (cy*y + c0)) + cz*z, h*h and the compare with the cell's best
 OPS_DENSE_PLANE = 8
-OPS_BAND_PAIR = 90
+# band_rows_kernel's walk (csrc/band_rows.cu), per (cell, candidate): the
+# plane distance h (2), the two barycentric weights (4), the inside test (1
+# subtraction, 3 compares), the z offsets to b and c (2), three edges of 13
+# each (ez*z and the saturated add, p - x2 - s*w in 6, its square in 5), the
+# cell's d2 (h*h or two minimums: 3, the choice between them made by
+# predicating each side on the inside test, no select) and the compare and
+# select against the best (2): 56. Per (row, candidate), shared by the
+# row's 8 cells: row_halves' six affine row forms (24), the degenerate
+# compare and select (2) and the x, y offsets (4): 30. So 8 x 56 + 30 =
+# 478 per candidate and row; the walk's SASS inner loop, which the smoke
+# prints beside it, holds 477 FP32 instructions (FMUL 212, FADD 184,
+# FADD.SAT 24, FSETP 33, FMNMX 16, FSEL 8): one cell's select against the
+# best issues as a predicated MOV.
+OPS_BAND_PAIR = 56
+OPS_BAND_ROW = 30
 OPS_BAND_COEF = 150
 OPS_VDT_DONOR = 9
 OPS_CHAMFER_OFFSET = 2
@@ -183,8 +210,9 @@ OPS_R1B_SEG = 68
 
 def bound_ms(ops, nbytes):
     """(ms, "operations" or "bytes"): the least time the card could take for
-    `ops` FP32 operations and `nbytes` of device-memory traffic."""
-    t_ops = ops / PEAK_FP32 * 1e3
+    `ops` FP32 operations (one instruction each) and `nbytes` of
+    device-memory traffic."""
+    t_ops = ops / PEAK_FP32_ISSUE * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -304,7 +332,7 @@ def check_k2(torch, device, mesh, grid):
     real = sum(int((csr["pair"][o:o + c] < M).sum())
                for t, o, c in zip(csr["ids"], csr["off"], csr["cnt"]) if t < T)
     bounds = {
-        "walk": bound_ms(real * 512 * OPS_BAND_PAIR,
+        "walk": bound_ms(real * (512 * OPS_BAND_PAIR + 64 * OPS_BAND_ROW),
                          160 * M + 4 * len(csr["pair"]) + 12 * len(csr["ids"])
                          + 20 * 512 * len(active)),
         "coefs": bound_ms(M * OPS_BAND_COEF, 196 * M),
@@ -1085,7 +1113,7 @@ def sass_counts(text):
     would show a handful."""
     counts = {}
     for name, (ins, _) in sass_functions(text).items():
-        if re.search(r"vpu_peak|vpu_mixed|scale2|add1", name):
+        if re.search(r"vpu_peak|vpu_mixed|tile_kernel", name):
             counts[name] = {op: sum(bool(re.search(rf"\b{op}\b", i))
                                     for _, i in ins)
                             for op in ("FFMA", "FMUL", "FADD")}
@@ -1103,6 +1131,27 @@ def sass_fp32(text, pattern):
     return {name: sum(bool(FP32_OPS.search(op)) for _, op in ins)
             for name, (ins, _) in sass_functions(text).items()
             if re.search(pattern, name)}
+
+
+SASS_MEMORY = re.compile(r"^(?:@!?U?P[T\d]+\s+)?((?:UBLKCP|UTMA\w*|SYNCS|"
+                         r"FENCE|LDG|STG|LDGSTS|DEPBAR|MEMBAR|BAR|ARRIVES)"
+                         r"[.\w]*)")
+
+
+def sass_memory(text, pattern):
+    """{kernel: {instruction: count}} of the copy, barrier and fence
+    instructions (bulk copies, mbarrier operations, proxy fences, global
+    loads and stores) of every kernel matching `pattern`."""
+    out = {}
+    for name, (ins, _) in sass_functions(text).items():
+        if re.search(pattern, name):
+            counts = {}
+            for _, op in ins:
+                m = SASS_MEMORY.search(op)
+                if m:
+                    counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+            out[name] = dict(sorted(counts.items()))
+    return out
 
 
 def sass_inner_loops(text, pattern=r"dense_stream|band_rows"):
@@ -1155,17 +1204,19 @@ def check_probes(torch, device):
     input) and a seeded input in [-1.5, 1.5]; P1/P2 also on a 4-step chain
     whose values stay finite. Bars: P1 without FMA, P2, P3 and P4 bit for
     bit, non-finite values included; P1 with FMA within 1 ulp of the twin
-    that adds in float64 and rounds once, or both non-finite. Returns
-    {name: (max_abs_err, plain_ms[, library_ms])}: the library call, timed
-    for P3 and P4 only, is torch's own x * 2 and x + 1."""
+    that adds in float64 and rounds once, or both non-finite. P3 and P4's
+    seeded input starts with special_values; then check_probe_edges. Returns {name: (max_abs_err,
+    plain_ms)}."""
     from sdfgenfast_tpu_torch.tools import micro_bench as mb
 
     rng = np.random.default_rng(3)
 
-    def inputs(shape):
-        return (torch.ones(shape, dtype=torch.float32, device=device),
-                torch.from_numpy(rng.uniform(-1.5, 1.5, shape).astype(
-                    np.float32)).to(device))
+    def inputs(shape, special=False):
+        seeded = torch.from_numpy(rng.uniform(-1.5, 1.5, shape).astype(
+            np.float32)).to(device)
+        if special:
+            special_values(torch, seeded.view(-1))
+        return torch.ones(shape, dtype=torch.float32, device=device), seeded
 
     out = {}
     for fma in (False, True):
@@ -1203,29 +1254,161 @@ def check_probes(torch, device):
         x, mb.MIXED_CHAIN), 2))
     for n_blocks, rows in mb.GRID_CASES:
         err = 0.0
-        for x in inputs((n_blocks * rows, mb.GRID_COLS)):
+        for x in inputs((n_blocks * rows, mb.GRID_COLS), special=True):
             got = mb.grid_overhead(x, n_blocks)
             want = mb.grid_overhead_reference(x, n_blocks)
             if not same_bits(torch, got, want):
                 raise AssertionError(f"P3 {n_blocks} blocks: differs")
+            if mb.grid_overhead.last_launch["grid"] != n_blocks:
+                raise AssertionError(f"P3: {mb.grid_overhead.last_launch} for "
+                                     f"{n_blocks} blocks")
             err = max(err, finite_err(torch, got, want))
         out[f"grid_overhead_b{rows}"] = (err, cuda_ms(
-            torch, lambda: mb.grid_overhead_reference(x, n_blocks), 10),
-            cuda_ms(torch, lambda: torch.mul(x, 2.0), 10))
+            torch, lambda: mb.grid_overhead_reference(x, n_blocks), 10))
     err = 0.0
-    for x in inputs(mb.HBM_SHAPE):
+    for x in inputs(mb.HBM_SHAPE, special=True):
         got = mb.hbm_stream(x)
         want = mb.hbm_stream_reference(x)
         if not same_bits(torch, got, want):
             raise AssertionError("P4: differs from its twin")
         err = max(err, finite_err(torch, got, want))
     out["hbm_stream"] = (err, cuda_ms(
-        torch, lambda: mb.hbm_stream_reference(x), 10),
-        cuda_ms(torch, lambda: torch.add(x, 1.0), 10))
+        torch, lambda: mb.hbm_stream_reference(x), 10))
     del x, got, want
     print("P1-P4 vs twins: P1 (both variants), P2, P3 (both block sizes) "
-          "and P4 held at the tool's shapes (P1 fma within 1 ulp, the rest "
-          "bit-equal, non-finite values included)", flush=True)
+          "and P4 held at the tool's shapes (P1 fma within 1 "
+          "ulp, the rest bit-equal, non-finite values included)", flush=True)
+    check_probe_edges(torch, device)
+    return out
+
+
+def special_values(torch, x):
+    """`x` (flat view of a seeded input) with non-finite and edge values at
+    its start: inf, -inf, NaN, -0.0, 3e38 (doubles to inf), a denormal."""
+    vals = [float("inf"), float("-inf"), float("nan"), -0.0, 3e38, 1e-40]
+    k = min(len(vals), x.numel())
+    x[:k] = torch.tensor(vals[:k], dtype=torch.float32, device=x.device)
+    return x
+
+
+def check_probe_edges(torch, device):
+    """P3 and P4 bit for bit against their twins off the tool's shapes. P4:
+    n = 1, 3, 4, 17, one tile - 1, one tile, one tile + 1 (HBM_TILE
+    floats, one stage), and a size whose last CTA gets a ragged tile that
+    ends in a scalar tail; its refusal of an x not 16-byte aligned. P3: one
+    block, an odd block_floats (one stage and the ring), blocks of 1 and 3
+    floats, and views x[1:], x[2:], x[3:] of a flat buffer (tiles starting
+    4-12 bytes past a 16-byte boundary). Both: n = 0 gives an empty tensor
+    without a launch."""
+    from sdfgenfast_tpu_torch.tools import micro_bench as mb
+
+    rng = np.random.default_rng(5)
+
+    def flat(n, lead=0):
+        buf = torch.from_numpy(rng.uniform(-1.5, 1.5, n + lead).astype(
+            np.float32)).to(device)
+        return special_values(torch, buf[lead:])
+
+    tile = mb.HBM_TILE
+    sizes = (1, 3, 4, 17, tile - 1, tile, tile + 1, 3 * tile + 23)
+    for n in sizes:
+        x = flat(n)
+        got = mb.hbm_stream(x)
+        if not same_bits(torch, got, mb.hbm_stream_reference(x)):
+            raise AssertionError(f"P4 n={n}: differs")
+        if mb.hbm_stream.last_launch["grid"] != -(-n // tile):
+            raise AssertionError(f"P4 n={n}: {mb.hbm_stream.last_launch}")
+    try:
+        mb.hbm_stream(flat(64, 1))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("P4 took an x that is not 16-byte aligned")
+    cases = [(1, 6144, 0), (1, 49152, 0), (7, 6143, 0), (3, 49151, 0),
+             (5, 1, 0), (9, 3, 1), (10, 6144, 1), (11, 6143, 2),
+             (5, 49152, 3), (4, 49151, 1), (7, 6143, 1), (3, 49151, 2)]
+    for n_blocks, bf, lead in cases:
+        x = flat(n_blocks * bf, lead)
+        if x.data_ptr() // 4 % 4 != lead:
+            raise AssertionError("P3 case: the view's offset is not as meant")
+        got = mb.grid_overhead(x, n_blocks)
+        if not same_bits(torch, got, mb.grid_overhead_reference(x, n_blocks)):
+            raise AssertionError(f"P3 {n_blocks} x {bf} at +{4 * lead} B: "
+                                 f"differs")
+        if mb.grid_overhead.last_launch["grid"] != n_blocks:
+            raise AssertionError(f"P3: {mb.grid_overhead.last_launch}")
+    before = (mb.grid_overhead.launches, mb.hbm_stream.launches)
+    empty = torch.empty((0, mb.GRID_COLS), device=device)
+    if (mb.grid_overhead(empty, 5).shape != empty.shape
+            or mb.hbm_stream(empty).shape != empty.shape
+            or (mb.grid_overhead.launches, mb.hbm_stream.launches) != before):
+        raise AssertionError("P3/P4 at n = 0: not an empty tensor without a "
+                             "launch")
+    print(f"P3/P4 edge cases bit-equal to the twins: P4 at n = {sizes}, "
+          f"unaligned x refused; P3 (blocks, floats, offset in floats) "
+          f"{cases}; n = 0 without a launch", flush=True)
+
+
+def single_ms(torch, fn, reps=10):
+    """The probe tool's timing before it queued its launches: CUDA events
+    around one call after a synchronize, the median of `reps`, after a
+    warm-up; the host's launch work falls inside the events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def probe_times(reps=10, repeats=3):
+    """P3 at both of the tool's sizes and P4 beside torch.mul(x, 2.0) and
+    torch.add(x, 1.0) on the same inputs (the tool's: ones), each timed by
+    repeats_ms (queued behind the spin, `reps` calls, `repeats` times) and,
+    for the record of how the tool timed them before, by single_ms. Uses
+    only entry points that older versions of the package have too, so it
+    times whichever package is first on the path; from another checkout's
+    root: ``python3 -c "import runpy;
+    runpy.run_path('<this file>')['probe_times']()"``. Prints a line per
+    time; returns {key: (min, median)} and {key + "_single": ms}."""
+    import torch
+
+    from sdfgenfast_tpu_torch.tools import micro_bench as mb
+
+    device = torch.device("cuda", 0)
+    card = card_line()
+    out = {}
+
+    def timed(key, fn, what):
+        out[key] = repeats_ms(torch, fn, reps, repeats)
+        out[key + "_single"] = single_ms(torch, fn, reps)
+        what = what() if callable(what) else what
+        print(f"[{card}] {what}: min {out[key][0]:.4f} ms, median "
+              f"{out[key][1]:.4f} ms over {repeats} x {reps} queued calls; "
+              f"{out[key + '_single']:.4f} ms one call at a time", flush=True)
+
+    for n_blocks, rows in mb.GRID_CASES:
+        x = torch.ones((n_blocks * rows, mb.GRID_COLS), dtype=torch.float32,
+                       device=device)
+        timed(f"p3_b{rows}", lambda: mb.grid_overhead(x, n_blocks),
+              lambda: f"P3 grid_overhead {n_blocks} x ({rows}, "
+              f"{mb.GRID_COLS}) {getattr(mb.grid_overhead, 'last_launch', '')}")
+        timed(f"mul_b{rows}", lambda: torch.mul(x, 2.0),
+              f"torch.mul(x, 2.0) on the same {tuple(x.shape)}")
+        del x
+    x = torch.ones(mb.HBM_SHAPE, dtype=torch.float32, device=device)
+    timed("p4", lambda: mb.hbm_stream(x),
+          lambda: f"P4 hbm_stream {tuple(x.shape)} "
+          f"{getattr(mb.hbm_stream, 'last_launch', '')}")
+    timed("add", lambda: torch.add(x, 1.0),
+          f"torch.add(x, 1.0) on the same {tuple(x.shape)}")
+    del x
     return out
 
 
@@ -1785,7 +1968,22 @@ def main():
         fn.launches = 0
     probe_res = mb.run(device)
     probe_launches = {fn.__name__: fn.launches for fn in probes}
-    print(f"probe tool launches: {probe_launches}", flush=True)
+    per_case = probe_res["launches_per_case"]
+    print(f"probe tool launches: {probe_launches} ({per_case} a case: a "
+          f"warm-up and the timed calls)", flush=True)
+    # P1 twice (with and without FMA), P3 twice (its two block sizes), P2
+    # and P4 once, each case through its kernel
+    want = {"vpu_peak": 2 * per_case, "vpu_mixed": per_case,
+            "grid_overhead": 2 * per_case, "hbm_stream": per_case}
+    if probe_launches != want:
+        raise AssertionError(f"probe tool launches {probe_launches}, want "
+                             f"{want}")
+    for g in probe_res["grid_overhead"]:
+        if g["launch"]["grid"] != g["blocks"]:
+            raise AssertionError(f"P3 launched {g['launch']} for "
+                                 f"{g['blocks']} TPU grid steps")
+        print(f"P3 {g['blocks']} x ({g['rows']}, {mb.GRID_COLS}): one CTA "
+              f"per TPU grid step, {g['launch']}", flush=True)
     sass = sass_text(lib_path)
     if sass is None:
         print("cuobjdump not found: SASS counts not taken", flush=True)
@@ -1793,11 +1991,18 @@ def main():
         for name, c in sorted(sass_counts(sass).items()):
             print(f"  SASS {name}: FFMA {c['FFMA']}, FMUL {c['FMUL']}, "
                   f"FADD {c['FADD']}", flush=True)
+        for name, c in sorted(sass_memory(sass, r"tile_kernel").items()):
+            print(f"  SASS {name} copies, barriers and fences: {c}",
+                  flush=True)
         for name, c in sorted(sass_inner_loops(
                 sass, r"dense_stream|band_rows|chamfer_fused").items()):
             print(f"  SASS {name} inner loop: " + (
                 "none found" if c is None else
-                f"{c[0]} instructions, {c[1]} FP32, {c[2]} LDS"), flush=True)
+                f"{c[0]} instructions, {c[1]} FP32, {c[2]} LDS") + (
+                f"; the bound counts 8 x {OPS_BAND_PAIR} + {OPS_BAND_ROW} = "
+                f"{8 * OPS_BAND_PAIR + OPS_BAND_ROW} FP32 operations per "
+                f"candidate and row" if name == "band_rows_kernel" else ""),
+                flush=True)
         # R1b's SASS beside the bound's count: the code computes each path
         # in full (recomputations included, divisions and sqrt expanded),
         # the bound only what each path needs
@@ -1873,6 +2078,8 @@ def main():
     torch.cuda.empty_cache()
     # K4 and R1 queued behind the spin, min and median of three repeats
     k4_r1 = k4_r1_times()
+    # P3 and P4 beside torch's own calls, queued the same way
+    probe_t = probe_times()
     k4_ms = k4_r1["k4"][1]
     torch.cuda.empty_cache()
     for n, r in results.items():
@@ -1985,10 +2192,13 @@ def main():
               f"({bounds['recompute_vjp' + key][1]}) at {cells} cells with a "
               f"gradient, {inside} in the plane case, {segs} segment "
               f"backward passes", flush=True)
+    # the probes' instructions per step: P1 two multiplies and two adds, or
+    # two FMAs; P2 three multiplies (a*b, d*d, b*0.999), two adds, a compare
+    # and a select (7)
     n_vpu, n_hbm = int(np.prod(mb.VPU_SHAPE)), int(np.prod(mb.HBM_SHAPE))
     bounds.update(
         vpu_peak=bound_ms(n_vpu * mb.PEAK_CHAIN * 4, 8 * n_vpu),
-        vpu_peak_fma=bound_ms(n_vpu * mb.PEAK_CHAIN * 4, 8 * n_vpu),
+        vpu_peak_fma=bound_ms(n_vpu * mb.PEAK_CHAIN * 2, 8 * n_vpu),
         vpu_mixed=bound_ms(n_vpu * mb.MIXED_CHAIN * 7, 8 * n_vpu),
         hbm_stream=bound_ms(n_hbm, 8 * n_hbm))
     for blocks, rows in mb.GRID_CASES:
@@ -2033,18 +2243,30 @@ def main():
           f"the whole band_rows call {k2t['whole']:.4f} ms; K1 box36 cull "
           f"evaluated {k1['evaluated_share']:.1%} of (warp, triangle) steps",
           flush=True)
+    # P1 and P2 as the tool timed them; P3 and P4 (and torch's own x * 2
+    # and x + 1) by probe_times, the tool's time beside
     grid_res = {g["rows"]: g for g in probe_res["grid_overhead"]}
     probe_ms = {"vpu_peak": probe_res["vpu_peak"]["ms"],
                 "vpu_peak_fma": probe_res["vpu_peak_fma"]["ms"],
                 "vpu_mixed": probe_res["vpu_mixed"]["ms"],
-                "grid_overhead_b128": grid_res[128]["ms"],
-                "grid_overhead_b1024": grid_res[1024]["ms"],
-                "hbm_stream": probe_res["hbm_stream"]["ms"]}
+                "grid_overhead_b128": probe_t["p3_b128"][1],
+                "grid_overhead_b1024": probe_t["p3_b1024"][1],
+                "hbm_stream": probe_t["p4"][1]}
+    probe_lib = {"grid_overhead_b128": probe_t["mul_b128"][1],
+                 "grid_overhead_b1024": probe_t["mul_b1024"][1],
+                 "hbm_stream": probe_t["add"][1]}
+    tool_ms = {"grid_overhead_b128": grid_res[128]["ms"],
+               "grid_overhead_b1024": grid_res[1024]["ms"],
+               "hbm_stream": probe_res["hbm_stream"]["ms"]}
     for name, ms in probe_ms.items():
-        lib = probe_err[name][2] if len(probe_err[name]) > 2 else None
-        print(f"[{card}] probe {name}: kernel {ms:.3f} ms, plain torch "
-              f"{probe_err[name][1]:.3f} ms"
-              + (f", torch's own call {lib:.3f} ms" if lib else ""),
+        b, by = bounds[name]
+        lib = probe_lib.get(name)
+        print(f"[{card}] probe {name}: kernel {ms:.4f} ms"
+              + (f" (the tool's run {tool_ms[name]:.4f} ms)"
+                 if name in tool_ms else "")
+              + f", plain torch {probe_err[name][1]:.3f} ms"
+              + (f", torch's own call {lib:.4f} ms" if lib else "")
+              + f", bound {b:.4f} ms ({by}), {b / ms:.1%} of the bound",
               flush=True)
 
     probe_rows = (("vpu_peak", "vpu_peak", 62), ("vpu_peak_fma", "vpu_peak", 62),
@@ -2096,9 +2318,7 @@ def main():
          "replaces": f"tools/micro_bench.py:{line}",
          "launches": probe_launches[wrapper],
          "max_abs_err": probe_err[name][0], "ms": probe_ms[name],
-         "plain_ms": probe_err[name][1],
-         "library_ms": (probe_err[name][2] if len(probe_err[name]) > 2
-                        else None)}
+         "plain_ms": probe_err[name][1], "library_ms": probe_lib.get(name)}
         for name, wrapper, line in probe_rows
     ] + [
         # no Pallas counterpart: the JAX package differentiates jnp code
@@ -2143,6 +2363,11 @@ def main():
     for row in kernels:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]
         row.setdefault("library_ms", None)
+    # a kernel above its bound means a wrong count or a wrong time
+    over = [(row["name"], row["bound_ms"] / row["ms"]) for row in kernels
+            if row["bound_ms"] > row["ms"]]
+    if over:
+        raise AssertionError(f"kernels above 100% of their bound: {over}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# C entry points and their argument types (pointers and the stream as void*)
+_IP = ctypes.POINTER(ctypes.c_int)
+_LP = ctypes.POINTER(ctypes.c_longlong)
+# C entry points and their argument types (pointers and the stream as void*,
+# a value written back as int* or long long*)
 _SIGNATURES = {
     "sdf_band_coefs": [_P, _I, _P, _P],
     "sdf_band_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -59,8 +62,9 @@ _SIGNATURES = {
                                _L, _I, _I, _I, _P, _P, _P, _P, _P],
     "sdf_probe_vpu_peak": [_P, _P, _L, _I, _I, _P],
     "sdf_probe_vpu_mixed": [_P, _P, _L, _I, _P],
-    "sdf_probe_scale2": [_P, _P, _I, _I, _P],
-    "sdf_probe_add1": [_P, _P, _L, _P],
+    "sdf_probe_scale2": [_P, _P, _L, _L, _I, _I, _L, _P],
+    "sdf_probe_add1": [_P, _P, _L, _L, _I, _I, _L, _P],
+    "sdf_probe_tile_plan": [_I, _L, _I, _LP, _IP, _IP],
 }
 
 _lock = threading.Lock()
