@@ -7,12 +7,19 @@ when there is none (unlike the JAX package's ``"auto"``, which falls back to
 its CPU backend); only an explicit ``"cpu"`` runs the kernels' plain-torch
 twins on the CPU.
 
+``far_field`` takes every mode of the JAX package (``"exact"``, the
+default, ``"propagate"``, ``"eikonal"``). The generators also take an
+optional ``config`` (``pipeline.SDFConfig``) for the schedule knobs (the
+capped or flat jump-flood ladder, ``tile_shape``, ``chamfer_passes``, ...);
+``exact_band`` and ``far_field`` always come from their own arguments.
+
 ``generate_sdf_batch`` runs many meshes on one grid, binning mesh k+1 on the
 host while mesh k's kernels run on the card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -37,6 +44,12 @@ __all__ = [
 ]
 
 Device = Optional[Union[str, torch.device]]
+
+
+def _config(config: Optional[SDFConfig], exact_band: int,
+            far_field: str) -> SDFConfig:
+    return dataclasses.replace(config if config is not None else SDFConfig(),
+                               exact_band=exact_band, far_field=far_field)
 
 
 def is_gpu_available() -> bool:
@@ -89,11 +102,14 @@ def generate_sdf(
     num_threads: int = 0,
     far_field: str = "exact",
     device: Device = None,
+    config: Optional[SDFConfig] = None,
 ) -> np.ndarray:
     """Generate an (nx, ny, nz) float32 SDF (NumPy). Signature and validation
     follow sdfgen_py.cpp:160-218; `num_threads` is accepted for compatibility
     and ignored. `device` picks the CUDA device (or "cpu" with
-    backend="cpu"); by default the current CUDA device."""
+    backend="cpu"); by default the current CUDA device. `config` sets the
+    pipeline's other knobs (exact_band and far_field come from their
+    arguments)."""
     vertices, triangles = _validate_mesh_arrays(vertices, triangles)
     if vertices.shape[0] == 0 or triangles.shape[0] == 0:
         raise ValueError(
@@ -109,8 +125,8 @@ def generate_sdf(
     grid = GridSpec(tuple(float(v) for v in origin), float(dx),
                     (int(nx), int(ny), int(nz)))
     mesh = Mesh(vertices, triangles)
-    config = SDFConfig(exact_band=exact_band, far_field=far_field)
-    phi = make_level_set3(mesh, grid, config, device=dev)
+    phi = make_level_set3(mesh, grid, _config(config, exact_band, far_field),
+                          device=dev)
     return phi.cpu().numpy()
 
 
@@ -126,6 +142,7 @@ def generate_sdf_batch(
     far_field: str = "exact",
     device: Device = None,
     device_mesh=None,
+    config: Optional[SDFConfig] = None,
 ):
     """Generate SDFs for a batch of meshes on one shared grid.
 
@@ -136,7 +153,9 @@ def generate_sdf_batch(
 
     One-deep pipeline, as ``sdfgenfast_tpu.api.generate_sdf_batch``: mesh
     k+1 is binned on the host while mesh k's kernels run (the device work
-    is launched without a host sync), then mesh k is copied back.
+    is launched without a host sync), then mesh k is copied back. With
+    ``far_field="propagate"`` the plane scans end every pass in a host sync,
+    so mesh k's device work is done before mesh k+1 is binned: no overlap.
     `device_mesh` (multi-GPU sharding) is not ported and raises
     NotImplementedError.
     """
@@ -150,7 +169,7 @@ def generate_sdf_batch(
     dev = resolve_device(backend, device)
     grid = GridSpec(tuple(float(v) for v in origin), float(dx),
                     (int(nx), int(ny), int(nz)))
-    config = SDFConfig(exact_band=exact_band, far_field=far_field)
+    config = _config(config, exact_band, far_field)
 
     validated = []
     for vertices, triangles in meshes:
@@ -205,6 +224,7 @@ def generate_from_mesh(
     num_threads: int = 0,
     far_field: str = "exact",
     device: Device = None,
+    config: Optional[SDFConfig] = None,
 ) -> Tuple[np.ndarray, dict]:
     """Auto grid sizing from array bounds — python/sdfgen.py:47-142 semantics."""
     vertices = np.asarray(vertices)
@@ -226,7 +246,7 @@ def generate_from_mesh(
     sdf = generate_sdf(
         vertices, triangles, tuple(origin), dx, nx, ny, nz,
         exact_band=exact_band, backend=backend, num_threads=num_threads,
-        far_field=far_field, device=device,
+        far_field=far_field, device=device, config=config,
     )
     metadata = {
         "origin": tuple(float(v) for v in origin),
@@ -249,6 +269,7 @@ def generate_from_file(
     num_threads: int = 0,
     far_field: str = "exact",
     device: Device = None,
+    config: Optional[SDFConfig] = None,
 ) -> Tuple[np.ndarray, dict]:
     """Load + size + generate — python/sdfgen.py:145-265 semantics."""
     vertices, triangles, bounds = load_mesh(filename)
@@ -258,7 +279,7 @@ def generate_from_file(
     sdf = generate_sdf(
         vertices, triangles, spec.origin, spec.dx, *spec.shape,
         exact_band=exact_band, backend=backend, num_threads=num_threads,
-        far_field=far_field, device=device,
+        far_field=far_field, device=device, config=config,
     )
     metadata = {
         "origin": spec.origin,

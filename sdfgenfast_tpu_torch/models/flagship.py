@@ -6,7 +6,9 @@ vertex positions (a float32 ``torch.Tensor`` on an explicit device), the
 forward is the SDF grid (``pipeline.make_level_set3(..., verts=...)``, whose
 gradient comes from the recompute kernels R1/R1b), and a training step is
 gradient descent on an SDF-space loss. The binning is static state, redone
-by :meth:`SDFGenerator.refresh` when the vertices move across cells.
+by :meth:`SDFGenerator.refresh` when the vertices move across cells. With
+``far_field="eikonal"`` the gradient flows through the seeded band only
+(the far field is an estimate that carries none).
 Multi-GPU (``device_mesh``) is not ported yet.
 """
 

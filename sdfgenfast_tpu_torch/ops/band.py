@@ -1,8 +1,11 @@
-"""Host half of the narrow-band binning: triangle -> 8^3 tile candidate lists.
+"""Narrow-band binning (triangle -> tile candidate lists) and the plain
+band evaluator of the ``propagate`` and ``eikonal`` far fields.
 
-Copy of the framework-free part of ``sdfgenfast_tpu/ops/band.py``
-(``BandBinning``, ``triangle_grid_coords``, ``bin_triangles``). The device
-evaluation is the K2 kernel in ``ops/band_kernel.py``.
+Copy of ``sdfgenfast_tpu/ops/band.py``: the framework-free host half
+(``BandBinning``, ``triangle_grid_coords``, ``bin_triangles``) and
+``band_distance_field`` in torch on the tensors' device. The exact far
+field's band comes from kernel K2 (``ops/band_kernel.py``, 8^3 tiles) or
+``ops/tiled.py`` (other tiles).
 
 Band-membership decisions replicate the reference exactly: double-precision
 grid coordinates (makelevelset3.cpp:206-208), C truncation-toward-zero, and
@@ -15,10 +18,16 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ..grid import GridSpec
+from .geometry import gather_tri9, point_triangle_distance_sq_soa
+from .band_kernel import _upper
+from .tiled import _chunks, _tile_cells, _tile_local_offsets, scatter_untile
+from .vdt import sqrt_f32
 
-__all__ = ["BandBinning", "bin_triangles", "triangle_grid_coords", "DEFAULT_TILE"]
+__all__ = ["BandBinning", "band_distance_field", "bin_triangles",
+           "triangle_grid_coords", "DEFAULT_TILE"]
 
 DEFAULT_TILE = (8, 8, 8)
 
@@ -207,3 +216,54 @@ def bin_triangles(
     valid[row, pos] = True
 
     return BandBinning(tile_shape, (nti, ntj, ntk), uniq.astype(np.int32), cand, valid)
+
+
+def band_distance_field(tri_verts, active_ids, cand, cand_valid, origin,
+                        dx: float, tile_shape, tiles_dim, grid_shape,
+                        chunk: int = 128):
+    """Dense (ni, nj, nk) narrow-band (phi, closest_tri) from binned
+    candidates: every cell of an active tile against every valid candidate
+    of its tile (``point_triangle_distance_sq_soa``), the first minimum of
+    the ascending candidate list (the reference's strict '<',
+    makelevelset3.cpp:216-219), ``upper`` and -1 where none comes below the
+    init bound ``upper = (ni+nj+nk)*dx`` or in inactive tiles.
+
+    tri_verts (M, 3, 3) float32 WORLD vertices; active_ids (A,) int32
+    (sentinel T rows are dropped); cand / cand_valid (A, K) int32 / bool;
+    origin (3,) float32 tensor; dx a float32-representable float. Cell
+    positions are the reference's f32(i) * dx + origin (makelevelset3.cpp:
+    214)."""
+    device = tri_verts.device
+    C = int(np.prod(tile_shape))
+    upper = _upper(grid_shape, dx)
+    # the padded slots (sentinel id T) would be dropped by the scatter:
+    # leave them out of the evaluation
+    live = active_ids < int(np.prod(tiles_dim))
+    active_ids, cand, cand_valid = (active_ids[live], cand[live],
+                                    cand_valid[live])
+    A = active_ids.shape[0]
+    tri9 = tri_verts.reshape(-1, 9).T
+    local = _tile_local_offsets(tile_shape, device)
+    phi_rows, tid_rows = [], []
+    for s, e in _chunks(A, chunk):
+        cd, vd = cand[s:e], cand_valid[s:e]
+        gx = (_tile_cells(active_ids[s:e], tile_shape, tiles_dim,
+                          local).to(torch.float32) * dx + origin)  # (B, C, 3)
+        p = tuple(gx[:, :, None, ax] for ax in range(3))  # (B, C, 1)
+        va, vb, vc = (tuple(v[:, None, :] for v in w)  # (B, 1, K)
+                      for w in gather_tri9(tri9, cd))
+        d2 = point_triangle_distance_sq_soa(p, va, vb, vc)  # (B, C, K)
+        d2 = torch.where(vd[:, None, :], d2, float("inf"))
+        # argmin takes the first minimum, also when every entry is inf
+        amin = torch.argmin(d2, dim=-1)  # (B, C)
+        dmin2 = torch.gather(d2, -1, amin[..., None])[..., 0]
+        tid = torch.gather(cd, 1, amin).to(torch.int32)
+        has = dmin2 < float(upper * upper)
+        phi_rows.append(torch.where(has, sqrt_f32(dmin2), float(upper)))
+        tid_rows.append(torch.where(has, tid, -1))
+    if not phi_rows:
+        phi_rows = [torch.zeros((0, C), dtype=torch.float32, device=device)]
+        tid_rows = [torch.zeros((0, C), dtype=torch.int32, device=device)]
+    return scatter_untile(torch.cat(phi_rows), torch.cat(tid_rows),
+                          active_ids, upper, tile_shape, tiles_dim,
+                          grid_shape)

@@ -1,12 +1,17 @@
-"""Point-triangle distance, structure-of-arrays form, in PyTorch (float32).
+"""Point-triangle distance in PyTorch (float32): the structure-of-arrays
+form and the stacked (..., 3) form.
 
-Counterpart of ``point_triangle_distance_sq_soa`` and ``gather_tri9`` in
+Counterpart of ``point_triangle_distance_sq_soa``, ``gather_tri9``,
+``point_segment_distance_sq`` and ``point_triangle_distance_sq`` in
 ``sdfgenfast_tpu/ops/geometry.py``: the reference's case analysis and
 clamping (``point_segment_distance`` / ``point_triangle_distance``,
-cpu_lib/makelevelset3.cpp:21-70) as branchless tensor code. It is the
-per-triangle body of the recompute kernel R1 (``csrc/recompute.cu``) and of
-its plain twin, so the operation order is the JAX package's, step for step:
-the CUDA kernel repeats it with ``--fmad=false``.
+cpu_lib/makelevelset3.cpp:21-70) as branchless tensor code. The SoA form is
+the per-triangle body of the recompute kernel R1 (``csrc/recompute.cu``) and
+of its plain twin, so the operation order is the JAX package's, step for
+step: the CUDA kernel repeats it with ``--fmad=false``. The stacked form is
+the plane scan's (``ops/sweep.py``); its dot products sum their three
+products in a fixed order (x, then y, then z), so that the CPU and the card
+evaluate one expression.
 
 Under autograd it differentiates as the JAX function does: the clamps are
 ``maximum``/``minimum`` pairs (as ``jnp.clip`` and ``jnp.maximum`` are), so
@@ -18,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gather_tri9", "point_triangle_distance_sq_soa"]
+__all__ = ["gather_tri9", "point_segment_distance_sq",
+           "point_triangle_distance_sq", "point_triangle_distance_sq_soa"]
 
 
 def _d3(ux, uy, uz, vx, vy, vz):
@@ -84,3 +90,59 @@ def point_triangle_distance_sq_soa(p, a, b, c):
                     torch.minimum(d13, d23)),
     )
     return torch.where(inside, din, d_edge)
+
+
+def _dot(a, b):
+    """Dot product over the last axis of size 3, summed x + y + z."""
+    ab = a * b
+    return ab[..., 0] + ab[..., 1] + ab[..., 2]
+
+
+def point_segment_distance_sq(x0, x1, x2):
+    """Squared distance from x0 to the segment [x1, x2], (..., 3) tensors
+    that broadcast: s12 = clamp(dot(x2 - x0, x2 - x1) / |x2 - x1|^2) weighs
+    x1, 1 - s12 weighs x2 (cpu_lib/makelevelset3.cpp:21-34)."""
+    d = x2 - x1
+    m2 = _dot(d, d)
+    s12 = _clip01(_dot(x2 - x0, d) / _at_least(m2, 1e-30))
+    c = s12[..., None] * x1 + (1.0 - s12)[..., None] * x2
+    diff = x0 - c
+    return _dot(diff, diff)
+
+
+def _triangle_case(x0, x1, x2, x3):
+    """Barycentric weights of x0's projection on the plane of (x1, x2, x3):
+    (w23 on x1, w31 on x2, w12 on x3, inside), the reference's names
+    (cpu_lib/makelevelset3.cpp:51-59)."""
+    x13 = x1 - x3
+    x23 = x2 - x3
+    x03 = x0 - x3
+    m13 = _dot(x13, x13)
+    m23 = _dot(x23, x23)
+    d = _dot(x13, x23)
+    invdet = 1.0 / _at_least(m13 * m23 - d * d, 1e-30)
+    a = _dot(x13, x03)
+    b = _dot(x23, x03)
+    w23 = invdet * (m23 * a - d * b)
+    w31 = invdet * (m13 * b - d * a)
+    w12 = 1.0 - w23 - w31
+    inside = (w23 >= 0.0) & (w31 >= 0.0) & (w12 >= 0.0)
+    return w23, w31, w12, inside
+
+
+def point_triangle_distance_sq(x0, x1, x2, x3):
+    """Squared distance from points x0 to triangles (x1, x2, x3), (..., 3)
+    float32 tensors that broadcast over the leading axes."""
+    w23, w31, w12, inside = _triangle_case(x0, x1, x2, x3)
+    c_in = w23[..., None] * x1 + w31[..., None] * x2 + w12[..., None] * x3
+    diff = x0 - c_in
+    d_in = _dot(diff, diff)
+    d12 = point_segment_distance_sq(x0, x1, x2)
+    d13 = point_segment_distance_sq(x0, x1, x3)
+    d23 = point_segment_distance_sq(x0, x2, x3)
+    # the case selection of cpu_lib/makelevelset3.cpp:62-69
+    d_edge = torch.where(
+        w23 > 0.0, torch.minimum(d12, d13),
+        torch.where(w31 > 0.0, torch.minimum(d12, d23),
+                    torch.minimum(d13, d23)))
+    return torch.where(inside, d_in, d_edge)

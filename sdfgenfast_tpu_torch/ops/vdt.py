@@ -1,8 +1,9 @@
-"""Cell-level vector distance transform (closest-point jump flooding), the
-pyramid schedule and the chamfer relaxation, in plain torch.
+"""Cell-level vector distance transform (closest-point jump flooding): the
+flat and capped jump-flood ladders, the pyramid schedule and the chamfer
+relaxation, in plain torch.
 
-Counterpart of the parts of ``sdfgenfast_tpu/ops/vdt.py`` that the binned
-exact path runs (``vdt.py:71-147, 233-251, 329-574``). Propagating the
+Counterpart of ``sdfgenfast_tpu/ops/vdt.py`` for one device (the sharded
+halo rounds are not ported). Propagating the
 closest POINT (Danielsson's vector distance transform with jump-flooding
 strides) keeps every propagated distance an exact distance to a point on
 some mesh triangle, so the far field is an overestimate that shrinks as
@@ -13,11 +14,13 @@ int32 triangle id BITCAST into a float32 channel (``Tensor.view``), and d2.
 The id channel is only ever moved by selects and copies, never used in
 arithmetic.
 
-The rounds themselves run through ``ops/vdt_kernel.round_phase`` (kernel K3
+Every Jacobi round runs through ``ops/vdt_kernel.round_phase`` (kernel K3
 on CUDA tensors, ``round_phase_reference`` here on CPU tensors); this
-module's ``_jacobi_round`` is the plain round they are both held to.
-Downsample, upsample, freeze and the sqrt stay plain torch ops, as the JAX
-package leaves them to XLA outside its Pallas kernels.
+module's ``_jacobi_round`` is the plain round they are both held to. The
+flat ladder's Gauss-Seidel rounds (``_gs_round`` at stride 1,
+``_gs_axes_round`` at strides of 8 and more), downsample, upsample, freeze
+and the sqrt stay plain torch ops, as the JAX package leaves them to XLA
+outside its Pallas kernels.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ __all__ = [
     "PYRAMID_LEVEL_ROUNDS",
     "PYRAMID_COARSE_ROUNDS",
     "stride_ladder",
+    "vdt_far_field",
     "pyramid_level_shapes",
     "vdt_pyramid_far_field",
     "chamfer_relax",
@@ -109,10 +113,54 @@ def _jacobi_round(state, px, py, pz, stride):
     return best
 
 
-def stride_ladder(max_dim: int, extra_rounds: int = 2):
+def _shifted(state, offset):
+    """`state` (5, ni, nj, nk) read at cell + `offset` (one int per axis),
+    FAR where that cell lies outside the grid: the candidate that a round
+    reads from a FAR-padded copy, without the padded copy."""
+    out = torch.full_like(state, float(FAR))
+    dst, src = [slice(None)], [slice(None)]
+    for o, n in zip(offset, state.shape[1:]):
+        if abs(o) >= n:
+            return out
+        dst.append(slice(max(-o, 0), n - max(o, 0)))
+        src.append(slice(max(o, 0), n - max(-o, 0)))
+    out[tuple(dst)] = state[tuple(src)]
+    return out
+
+
+def _gs_round(state, px, py, pz, stride):
+    """Gauss-Seidel round: the 26 offsets in _OFFSETS26 order, each reading
+    the RUNNING state (values adopted earlier in the round donate again)."""
+    for o in _OFFSETS26.tolist():
+        cand = _shifted(state, [v * stride for v in o])
+        state = _merge(state, cand, _dist2(px, py, pz, cand[0], cand[1],
+                                           cand[2]))
+    return state
+
+
+_OFFSETS6 = np.array(
+    [(-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1)],
+    np.int32,
+)
+
+
+def _gs_axes_round(state, px, py, pz, stride):
+    """Axis-separated Gauss-Seidel round: the six face offsets of
+    _OFFSETS6 in sequence (i, then j, then k), each reading the running
+    state, so content reaches the diagonals within the round. A candidate
+    is one state-sized read, whatever the stride (the JAX package pads only
+    the shifted axis for the same reason: 512-class grids)."""
+    for o in _OFFSETS6.tolist():
+        cand = _shifted(state, [v * stride for v in o])
+        state = _merge(state, cand, _dist2(px, py, pz, cand[0], cand[1],
+                                           cand[2]))
+    return state
+
+
+def stride_ladder(max_dim: int, max_hop=None, extra_rounds: int = 2):
     """The jump-flood stride schedule: max_dim/2, /4, .., 1, then
-    `extra_rounds` stride-1 polish rounds. (The JAX package's `max_hop` cap
-    belongs to the capped ladder, which is not ported.)"""
+    `extra_rounds` stride-1 polish rounds. With a `max_hop` cap, the capped
+    stride repeats until it covers the reach of the strides it replaces."""
     s = 1
     while s * 2 < max_dim:
         s *= 2
@@ -120,7 +168,53 @@ def stride_ladder(max_dim: int, extra_rounds: int = 2):
     while s >= 1:
         strides.append(s)
         s //= 2
+    if max_hop is not None and strides and strides[0] > max_hop:
+        capped = [x for x in strides if x <= max_hop]
+        reach_missing = sum(x for x in strides if x > max_hop)
+        repeats = -(-reach_missing // max_hop)
+        strides = [max_hop] * repeats + capped
     return tuple(strides + [1] * extra_rounds)
+
+
+def vdt_far_field(
+    cpx, cpy, cpz,  # (ni, nj, nk) f32 seed closest points (grid-local), FAR empty
+    tid,  # (ni, nj, nk) int32 seed ids, -1 empty
+    phi_seed,  # (ni, nj, nk) f32 band distances (upper if unseeded)
+    dx: float,  # float32-representable cell size
+    strides,  # the ladder (stride_ladder)
+    *,
+    freeze_mask=None,  # bool: cells whose phi_seed is provably exact
+    jacobi: bool = False,  # True: every round Jacobi (the capped ladder)
+    phase,  # (state, dx, strides, scale) -> state: vdt_kernel.round_phase
+):
+    """Closest-point jump flooding over the whole grid, one round per
+    stride (``sdfgenfast_tpu.ops.vdt.vdt_far_field`` on one device).
+
+    With `jacobi`, every round is a Jacobi round through `phase` (kernel K3
+    on CUDA). Otherwise strides of 8 and more take :func:`_gs_axes_round`,
+    stride 1 :func:`_gs_round` and strides 2 and 4 `phase`. Returns (phi,
+    tid): cells in `freeze_mask` (default: every seeded cell) keep their
+    seed values, every other cell takes min(|p - cp|, phi_seed) and the
+    propagated id."""
+    ni, nj, nk = cpx.shape
+    px, py, pz = _level_pos_axes((ni, nj, nk), dx, 1, cpx.device)
+    state = pack_state(cpx, cpy, cpz, tid, _dist2(px, py, pz, cpx, cpy, cpz))
+    for stride in strides:
+        if not jacobi and stride >= 8:
+            state = _gs_axes_round(state, px, py, pz, stride)
+        elif not jacobi and stride == 1:
+            state = _gs_round(state, px, py, pz, stride)
+        else:
+            state = phase(state, dx, (stride,), 1)
+
+    phi = sqrt_f32(torch.clamp(state[4], min=0.0))
+    out_tid = unpack_tid(state[3])
+    if freeze_mask is None:
+        freeze_mask = tid >= 0
+    return (
+        torch.where(freeze_mask, phi_seed, torch.minimum(phi, phi_seed)),
+        torch.where(freeze_mask, tid, out_tid),
+    )
 
 
 # ---------------------------------------------------------------------------

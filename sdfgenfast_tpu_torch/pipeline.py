@@ -1,38 +1,54 @@
-"""End-to-end SDF pipeline in PyTorch: the dense and the binned exact path.
+"""End-to-end SDF pipeline in PyTorch: every far-field mode of the JAX
+package on one device, with the host sign.
 
-Counterpart of ``sdfgenfast_tpu/pipeline.py`` for the default
-``SDFConfig()`` (``far_field="exact"``, ``sign_mode="host"``,
-``parity_transport="auto"``). The path splits on the triangle count
+Counterpart of ``sdfgenfast_tpu/pipeline.py`` for ``sign_mode="host"``
+(``sign_mode="device"`` raises NotImplementedError). The path splits on the
+far-field mode and, in ``"exact"`` mode, on the triangle count
 (:func:`use_dense`), as in the JAX package.
 
-Dense path (at most ``dense_max_tris`` triangles, :func:`dense_sign_core`):
+Dense path (``"exact"``, at most ``dense_max_tris`` triangles,
+:func:`dense_sign_core`):
 
   1. host: the x-ray parity (crossings or bit-packed), no band binning;
   2. device: vertex gather -> K1 (one kernel up to 1024 triangles): the
      exact distance of every cell to every triangle -> sign from the parity.
 
-Binned exact path (:func:`exact_core`):
+Binned exact path (``"exact"``, :func:`exact_core`):
 
-  1. host: native band binning into CSR candidate segments + x-ray parity,
-     exactly the JAX package's host layer;
-  2. device: K2 band kernel (exact band distances, winner ids, closest
-     points) -> untile -> freeze mask;
-  3. device: the coarse-to-fine closest-point pyramid, its Jacobi rounds in
-     K3, run in the JAX package's axis permutation;
+  1. host: native band binning (seed band max(exact_band, 3), pruned) +
+     x-ray parity, exactly the JAX package's host layer;
+  2. device, the band: 8^3 tiles through the K2 kernel over CSR candidate
+     segments; any other tile shape through the tile evaluator
+     (``ops/tiled.py``) over the padded (A, K) candidate matrices; exact
+     band distances, winner ids and closest points -> freeze mask;
+  3. device, the far field, by schedule: by default the coarse-to-fine
+     closest-point pyramid, its Jacobi rounds in K3, run in the JAX
+     package's axis permutation; with ``vdt_max_hop`` the capped ladder
+     (every round Jacobi, in K3); with only ``vdt_extra_rounds`` the flat
+     ladder (Gauss-Seidel rounds in torch, strides 2 and 4 in K3);
   4. device: K4 chamfer relaxation, then the sign from the parity.
 
-Vertex gradients (``make_level_set3(..., verts=...)``): either path runs
-without gradients and keeps only the closest-triangle ids; phi is then
-evaluated again from the vertices by the recompute kernels R1/R1b
-(``ops/recompute.py``).
+``"propagate"`` and ``"eikonal"`` (:func:`sweep_core`): the host bins with
+``prune=False`` and the seed band ``exact_band``; on the device
+``ops/band.band_distance_field`` gives the band, then
+
+  - ``"propagate"``: directional plane scans of closest-triangle ids to
+    their fixed point (``ops/sweep.py``, one host sync a pass), and phi is
+    evaluated again from the ids by R1 (``ops/recompute.py``);
+  - ``"eikonal"``: Jacobi relaxation of |grad phi| = 1 outside the seeded
+    band; the band's phi is evaluated again from its ids by R1.
+
+Vertex gradients (``make_level_set3(..., verts=...)``): the distance
+pipeline runs without gradients and keeps only the closest-triangle ids;
+phi is then evaluated again from the vertices by the recompute kernels
+R1/R1b, so the gradient reaches `verts` through every cell (``"eikonal"``:
+through the seeded band only).
 
 Every step takes an explicit ``torch.device``. CUDA tensors go through the
-hand-written kernels; CPU tensors through their plain-torch twins.
-
-Not ported yet (each raises ``NotImplementedError``): ``sign_mode="device"``,
-``far_field`` other than ``"exact"``, and the flat or capped jump-flood
-ladder (``vdt_max_hop`` / ``vdt_extra_rounds``) and band tile shapes other
-than 8^3 on the binned path.
+hand-written kernels; CPU tensors through their plain-torch twins. The
+modules with no Pallas counterpart (the tile evaluator, the Gauss-Seidel
+rounds, ``band_distance_field``, the sweeps) are plain torch on either
+device. Multi-GPU (``device_mesh``) is not ported.
 """
 
 from __future__ import annotations
@@ -51,12 +67,14 @@ from .ops import band_kernel
 from .ops import dense as dense_ops
 from .ops import recompute as recompute_ops
 from .ops import sign_host as sign_host_ops
+from .ops import sweep as sweep_ops
 from .ops import tiled as tiled_ops
 from .ops import vdt as vdt_ops
 from .ops import vdt_kernel
 
 __all__ = ["SDFConfig", "Binned", "bin_mesh", "binned_from_arrays",
-           "dense_sign_core", "exact_core", "make_level_set3", "use_dense"]
+           "check_supported", "dense_sign_core", "exact_core",
+           "ladder_schedule", "make_level_set3", "sweep_core", "use_dense"]
 
 DENSE_MAX_TRIS = dense_ops.DENSE_MAX_TRIS
 _DEFAULT_TILE_2D = (8, 128)  # sdfgenfast_tpu/ops/sign.py DEFAULT_TILE_2D
@@ -65,8 +83,8 @@ _DEFAULT_TILE_2D = (8, 128)  # sdfgenfast_tpu/ops/sign.py DEFAULT_TILE_2D
 @dataclasses.dataclass(frozen=True)
 class SDFConfig:
     """Pipeline configuration: the same fields and defaults as
-    ``sdfgenfast_tpu.pipeline.SDFConfig``. Fields that only select paths
-    outside this slice are accepted and checked by :func:`check_supported`."""
+    ``sdfgenfast_tpu.pipeline.SDFConfig``, checked by
+    :func:`check_supported` (``sign_mode="device"`` is not ported)."""
 
     exact_band: int = 1
     far_field: str = "exact"
@@ -88,14 +106,22 @@ class SDFConfig:
 class Binned:
     """Host-side preprocessing product (NumPy arrays).
 
-    tiles_dim and band_csr are None on the dense path, which bins nothing.
-    tiles_dim: (nti, ntj, ntk) 8^3-tile grid; band_csr: the K2 kernel's CSR
-    layout — "pair" (P,) candidate ids (sentinel M pads), "off"/"cnt"/"ids"
-    (A_pad,) per-active-tile segment starts, lengths and linear tile ids
-    (sentinel T pads), "kcap" the largest segment rounded up to 64. Exactly
-    one of parity_packed ((ceil(ni/8), nj, nk) uint8) and parity_crossings
-    ((C, nj, nk) int16) is set. seed_band: the band the candidates were
-    binned with (the freeze threshold never exceeds it).
+    Exactly one of parity_packed ((ceil(ni/8), nj, nk) uint8) and
+    parity_crossings ((C, nj, nk) int16) is set. The band binning is None
+    on the dense path, which bins nothing; otherwise tiles_dim is the
+    (nti, ntj, ntk) grid of `tile_shape` tiles and the candidates come in
+    the layout that the route reads (:func:`reads_csr`):
+
+    - band_csr, K2's CSR layout (``"exact"`` with 8^3 tiles): "pair" (P,)
+      candidate ids (sentinel M pads), "off"/"cnt"/"ids" (A_pad,) per
+      active tile segment starts, lengths and linear tile ids (sentinel T
+      pads), "kcap" the largest segment rounded up to 64;
+    - active_ids (A_pad,) int32 (sentinel T pads), cand (A_pad, K) int32
+      and cand_valid (A_pad, K) bool, the padded candidate matrices of the
+      tile evaluator and ``band_distance_field`` (every other route).
+
+    seed_band: the band the candidates were binned with (the freeze
+    threshold never exceeds it).
     """
 
     grid: GridSpec
@@ -106,6 +132,10 @@ class Binned:
     parity_packed: Optional[np.ndarray] = None
     parity_crossings: Optional[np.ndarray] = None
     seed_band: int = 3
+    tile_shape: Tuple[int, int, int] = band_ops.DEFAULT_TILE
+    active_ids: Optional[np.ndarray] = None
+    cand: Optional[np.ndarray] = None
+    cand_valid: Optional[np.ndarray] = None
 
 
 def _bucket(n: int, minimum: int = 64, shift: int = 4) -> int:
@@ -140,23 +170,44 @@ def use_dense(config: SDFConfig, num_tris: int) -> bool:
     return config.far_field == "exact" and 0 < num_tris <= cap
 
 
+def reads_csr(config: SDFConfig) -> bool:
+    """True when the binned path's band comes from K2 over the CSR layout
+    (``"exact"`` with 8^3 tiles); every other route reads the padded (A, K)
+    candidate matrices."""
+    return (config.far_field == "exact"
+            and tuple(config.tile_shape) == (8, 8, 8))
+
+
+def ladder_schedule(config: SDFConfig, grid_shape):
+    """The exact far field's schedule, as ``sdfgenfast_tpu.pipeline.
+    sdf_from_tri_verts`` picks it: None for the pyramid (neither
+    ``vdt_max_hop`` nor ``vdt_extra_rounds`` set), else (strides, jacobi)
+    of the capped (``vdt_max_hop``: every round Jacobi) or flat ladder,
+    with ``vdt_extra_rounds`` polish rounds (default 2 up to 256 cells, 4
+    above)."""
+    if config.vdt_max_hop is None and config.vdt_extra_rounds is None:
+        return None
+    extra = config.vdt_extra_rounds
+    if extra is None:
+        extra = 2 if max(grid_shape) <= 256 else 4
+    strides = vdt_ops.stride_ladder(max(grid_shape),
+                                    max_hop=config.vdt_max_hop,
+                                    extra_rounds=extra)
+    return strides, config.vdt_max_hop is not None
+
+
 def check_supported(config: SDFConfig, num_tris: int) -> None:
-    """Raise NotImplementedError for every path not ported yet."""
-    if config.far_field != "exact":
-        raise NotImplementedError(
-            f"far_field={config.far_field!r} is not ported yet (only 'exact')")
+    """Raise ValueError for unknown modes and NotImplementedError for
+    ``sign_mode="device"``, the one mode not ported."""
+    if config.far_field not in ("exact", "propagate", "eikonal"):
+        raise ValueError(f"unknown far_field mode: {config.far_field}")
     if config.sign_mode != "host":
         if config.sign_mode != "device":
             raise ValueError(f"unknown sign_mode: {config.sign_mode}")
         raise NotImplementedError("sign_mode='device' is not ported yet")
-    if use_dense(config, num_tris):
-        return  # the dense path has no ladder and no band tiles
-    if config.vdt_max_hop is not None or config.vdt_extra_rounds is not None:
-        raise NotImplementedError(
-            "vdt_max_hop / vdt_extra_rounds (flat or capped jump-flood "
-            "ladder) are not ported yet; only the default pyramid schedule")
-    if tuple(config.tile_shape) != (8, 8, 8):
-        raise NotImplementedError("only 8x8x8 band tiles are ported")
+    if len(tuple(config.tile_shape)) != 3 or min(config.tile_shape) < 1:
+        raise ValueError(f"bad tile_shape: {config.tile_shape}")
+    del num_tris
 
 
 def _host_parity_choose(mesh, grid, mode, min_cross_rows=0):
@@ -182,65 +233,95 @@ def _host_parity_choose(mesh, grid, mode, min_cross_rows=0):
 def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
              min_cross_rows: int = 0) -> Binned:
     """Host-side preprocessing for :func:`make_level_set3` (host sign mode):
-    the x-ray parity, plus band binning into the CSR layout on the binned
-    path. `min_cross_rows` pads the crossings transport's row count."""
+    the x-ray parity, plus band binning on the binned path, in the layout
+    the route reads (``sdfgenfast_tpu.pipeline.bin_mesh``).
+    `min_cross_rows` pads the crossings transport's row count."""
     mesh.validate_indices()
     check_supported(config, len(mesh.tris))
     packed, cross = _host_parity_choose(mesh, grid, config.parity_transport,
                                         min_cross_rows)
+    tris = mesh.tris.astype(np.int32)
     if use_dense(config, len(mesh.tris)):
-        return Binned(grid, config, mesh.tris.astype(np.int32),
-                      parity_packed=packed, parity_crossings=cross)
-    # a >=3-cell seed band makes the far field's 27-neighbourhood union
-    # cover the true closest triangle for near-band cells
-    seed_band = max(config.exact_band, 3)
+        return Binned(grid, config, tris, parity_packed=packed,
+                      parity_crossings=cross)
+    # the exact far field: a >=3-cell seed band makes the 27-neighbourhood
+    # union cover the true closest triangle for near-band cells; the
+    # propagate/eikonal modes bin the band itself, unpruned (they rely on
+    # the L-inf dilation's extra seeds)
+    exact = config.far_field == "exact"
+    seed_band = max(config.exact_band, 3) if exact else config.exact_band
+    tile_shape = tuple(int(v) for v in config.tile_shape)
     bb = band_ops.bin_triangles(mesh.verts, mesh.tris, grid, seed_band,
-                                config.tile_shape, prune=True)
+                                tile_shape, prune=exact)
+    T = int(np.prod(bb.tiles_dim))
+    A_pad = _bucket(bb.num_active)
+    ids = np.pad(bb.active_ids, (0, A_pad - bb.num_active))
+    ids[bb.num_active:] = T
+    if not reads_csr(config):
+        pad = ((0, A_pad - bb.num_active), (0, 0))
+        return Binned(grid, config, tris, bb.tiles_dim, None, packed, cross,
+                      seed_band, tile_shape, active_ids=ids,
+                      cand=np.pad(bb.cand, pad),
+                      cand_valid=np.pad(bb.cand_valid, pad))
     pair, off, cnt = band_kernel.band_csr_from_binning(
         bb.cand, bb.cand_valid, int(len(mesh.tris)))
-    A_pad = _bucket(bb.num_active)
     off = np.pad(off, (0, A_pad - len(off)))
     cnt = np.pad(cnt, (0, A_pad - len(cnt)))
     P_pad = _bucket(len(pair), minimum=128)
     pair = np.pad(pair, (0, P_pad - len(pair)),
                   constant_values=len(mesh.tris))
     kcap = max(-(-int(cnt.max() or 1) // 64) * 64, 64)
-    ids = np.pad(bb.active_ids, (0, A_pad - bb.num_active))
-    ids[bb.num_active:] = int(np.prod(bb.tiles_dim))
     csr = {"pair": pair, "off": off, "cnt": cnt, "kcap": kcap, "ids": ids}
-    return Binned(grid, config, mesh.tris.astype(np.int32), bb.tiles_dim,
-                  csr, packed, cross, seed_band)
+    return Binned(grid, config, tris, bb.tiles_dim, csr, packed, cross,
+                  seed_band, tile_shape)
 
 
 def binned_from_arrays(grid: GridSpec, config: SDFConfig, *, tris,
                        tiles_dim=None, pair=None, off=None, cnt=None, ids=None,
-                       kcap=None, parity_packed=None, parity_crossings=None,
-                       seed_band: int = 3) -> Binned:
+                       kcap=None, active_ids=None, cand=None, cand_valid=None,
+                       tile_shape=(8, 8, 8), parity_packed=None,
+                       parity_crossings=None, seed_band: int = 3) -> Binned:
     """Build the port's Binned from another binning's NumPy arrays (e.g. a
-    ``sdfgenfast_tpu`` Binned: ``band.active_ids``/``band_csr`` entries and
-    its parity), so both packages can run from identical host state. A dense
+    ``sdfgenfast_tpu`` Binned: its ``band_csr`` entries, its padded
+    ``band.active_ids`` / ``band.cand`` / ``band.cand_valid`` and its
+    parity), so both packages can run from identical host state. A dense
     Binned carries the triangles and the parity only: leave every band
-    array None."""
+    array None. A binned one gives tiles_dim and the CSR (pair, off, cnt,
+    ids, kcap), the (A, K) matrices (active_ids, cand, cand_valid), or
+    both."""
     if (parity_packed is None) == (parity_crossings is None):
         raise ValueError("give exactly one of parity_packed / parity_crossings")
-    band = (tiles_dim, pair, off, cnt, ids, kcap)
-    if all(v is None for v in band):
-        tiles_dim = csr = None
-    elif any(v is None for v in band):
-        raise ValueError("give all of tiles_dim, pair, off, cnt, ids, kcap "
-                         "(binned path) or none of them (dense path)")
+    csr_arrays = (pair, off, cnt, ids, kcap)
+    mats = (active_ids, cand, cand_valid)
+    if tiles_dim is None:
+        if any(v is not None for v in csr_arrays + mats):
+            raise ValueError("band arrays need tiles_dim")
+        csr = None
     else:
         tiles_dim = tuple(int(v) for v in tiles_dim)
-        csr = {"pair": np.asarray(pair, np.int32),
-               "off": np.asarray(off, np.int32),
-               "cnt": np.asarray(cnt, np.int32),
-               "ids": np.asarray(ids, np.int32), "kcap": int(kcap)}
+        if any(v is None for v in csr_arrays) and any(
+                v is not None for v in csr_arrays):
+            raise ValueError("give all of pair, off, cnt, ids, kcap or none")
+        if any(v is None for v in mats) and any(v is not None for v in mats):
+            raise ValueError("give all of active_ids, cand, cand_valid or none")
+        if pair is None and active_ids is None:
+            raise ValueError("a binned path needs the CSR (pair, off, cnt, "
+                             "ids, kcap) or the (A, K) candidate matrices "
+                             "(active_ids, cand, cand_valid)")
+        csr = None if pair is None else {
+            "pair": np.asarray(pair, np.int32),
+            "off": np.asarray(off, np.int32),
+            "cnt": np.asarray(cnt, np.int32),
+            "ids": np.asarray(ids, np.int32), "kcap": int(kcap)}
     return Binned(
         grid, config, np.asarray(tris, np.int32), tiles_dim, csr,
         None if parity_packed is None else np.asarray(parity_packed, np.uint8),
         None if parity_crossings is None
         else np.asarray(parity_crossings, np.int16),
-        int(seed_band))
+        int(seed_band), tuple(int(v) for v in tile_shape),
+        None if active_ids is None else np.asarray(active_ids, np.int32),
+        None if cand is None else np.asarray(cand, np.int32),
+        None if cand_valid is None else np.asarray(cand_valid, bool))
 
 
 def _parity_device(parity_data, ni):
@@ -265,54 +346,141 @@ def dense_sign_core(verts, tris, parity_data, origin, dx: float, *,
     return torch.where(parity, -phi, phi), tid
 
 
-def exact_core(verts, tris, band_ids, pair, tile_off, tile_cnt, parity_data,
-               origin, dx: float, *, grid_shape, tiles_dim, seed_band: int,
-               chamfer_passes: int = 2):
-    """The binned exact pipeline on device tensors (the pyramid + kernel
-    branch of ``sdfgenfast_tpu.pipeline._exact_core``).
-
-    verts (N, 3) f32, tris (M, 3) int32, band_ids/tile_off/tile_cnt (A_pad,)
-    int32, pair (P,) int32, parity_data (uint8 packed or int16 crossings),
-    origin (3,) f32 tensors, all on one device; dx a float32-representable
-    float. Returns (signed phi, tid), each (ni, nj, nk).
-    """
-    ni = grid_shape[0]
-    tile_shape = (8, 8, 8)
+def _band_k2(tri_local, band, dx: float, *, grid_shape, tiles_dim):
+    """The band of 8^3 tiles from K2 over the CSR layout: dense (phi0,
+    tid0, (cpx, cpy, cpz))."""
     T = int(np.prod(tiles_dim))
-    tri_local = (verts[tris.long()] - origin).reshape(-1, 9).contiguous()
+    rows = band_kernel.band_rows(
+        tri_local.reshape(-1, 9).contiguous(), band["pair"], band["ids"],
+        band["off"], band["cnt"], dx, tiles_dim=tiles_dim,
+        grid_shape=grid_shape)
+    phi0, tid0, *cps = (tiled_ops.untile_rows(r[:T], (8, 8, 8), tiles_dim,
+                                              grid_shape) for r in rows)
+    return phi0, tid0, tuple(cps)
 
-    phi_r, tid_r, cpx_r, cpy_r, cpz_r = band_kernel.band_rows(
-        tri_local, pair, band_ids, tile_off, tile_cnt, dx,
-        tiles_dim=tiles_dim, grid_shape=grid_shape)
 
-    def unt(rows):
-        return tiled_ops.untile_rows(rows[:T], tile_shape, tiles_dim,
-                                     grid_shape)
+def _band_tiles(tri_verts, band, origin, dx: float, *, grid_shape,
+                tile_shape, tiles_dim, chunk: int):
+    """The band of any tile shape from the tile evaluator over the padded
+    (A, K) candidate matrices (the XLA branch of
+    ``sdfgenfast_tpu.pipeline._exact_core``): dense (phi0, tid0, cps)."""
+    ids = band["active_ids"]
+    kw = dict(tile_shape=tile_shape, tiles_dim=tiles_dim)
+    phi_rows, tid_rows = tiled_ops.tile_candidate_rows(
+        tri_verts, ids, band["cand"], band["cand_valid"], origin, dx,
+        grid_shape=grid_shape, chunk=chunk, **kw)
+    table = tiled_ops.tri_affine_table(tri_verts - origin)
+    cp_rows = tiled_ops.closest_point_rows(table, ids, tid_rows, dx,
+                                           chunk=chunk, **kw)
+    phi0, tid0 = tiled_ops.scatter_untile(
+        phi_rows, tid_rows, ids, band_kernel._upper(grid_shape, dx),
+        grid_shape=grid_shape, **kw)
+    cps = tuple(tiled_ops.scatter_rows(r, ids, float(vdt_ops.FAR),
+                                       grid_shape=grid_shape, **kw)
+                for r in cp_rows)
+    return phi0, tid0, cps
 
-    phi0, tid0 = unt(phi_r), unt(tid_r)
-    cps = (unt(cpx_r), unt(cpy_r), unt(cpz_r))
+
+def exact_core(verts, tris, band, parity_data, origin, dx: float, *,
+               grid_shape, tiles_dim, seed_band: int, tile_shape=(8, 8, 8),
+               ladder=None, chamfer_passes: int = 2, band_chunk: int = 128):
+    """The binned exact pipeline on device tensors
+    (``sdfgenfast_tpu.pipeline._exact_core``).
+
+    verts (N, 3) f32, tris (M, 3) int32, parity_data (uint8 packed or int16
+    crossings), origin (3,) f32 tensors, all on one device; dx a float32-
+    representable float. `band` holds the binning's int32/bool tensors in
+    the layout the route reads: at 8^3 tiles K2's CSR ("ids", "pair",
+    "off", "cnt"), at other tiles the tile evaluator's (A, K) matrices
+    ("active_ids", "cand", "cand_valid"). `ladder` is
+    :func:`ladder_schedule`'s (strides, jacobi), or None for the pyramid.
+    Returns (signed phi, tid), each (ni, nj, nk).
+    """
+    tri_verts = verts[tris.long()]
+    if tuple(tile_shape) == (8, 8, 8):
+        phi0, tid0, cps = _band_k2(tri_verts - origin, band, dx,
+                                   grid_shape=grid_shape, tiles_dim=tiles_dim)
+    else:
+        phi0, tid0, cps = _band_tiles(
+            tri_verts, band, origin, dx, grid_shape=grid_shape,
+            tile_shape=tuple(tile_shape), tiles_dim=tiles_dim,
+            chunk=band_chunk)
     freeze = (tid0 >= 0) & (phi0 <= float(np.float32(seed_band)
                                           * np.float32(dx)))
 
-    # the JAX package's axis permutation (see _vdt_axis_perm)
-    perm = _vdt_axis_perm(grid_shape)
-    inv = tuple(int(v) for v in np.argsort(perm))
+    if ladder is not None:
+        strides, jacobi = ladder
+        phi, tid = vdt_ops.vdt_far_field(
+            *cps, tid0, phi0, dx, strides, freeze_mask=freeze, jacobi=jacobi,
+            phase=vdt_kernel.round_phase)
+    else:
+        # the JAX package's axis permutation (see _vdt_axis_perm)
+        perm = _vdt_axis_perm(grid_shape)
+        inv = tuple(int(v) for v in np.argsort(perm))
 
-    def t(x):
-        return x.permute(perm).contiguous()
+        def t(x):
+            return x.permute(perm).contiguous()
 
-    phi_p, tid_p = vdt_ops.vdt_pyramid_far_field(
-        t(cps[perm[0]]), t(cps[perm[1]]), t(cps[perm[2]]), t(tid0), t(phi0),
-        # extra_polish=2 is the JAX package's _exact_core default
-        dx, freeze_mask=t(freeze), extra_polish=2,
-        phase=vdt_kernel.round_phase)
-    phi = phi_p.permute(inv).contiguous()
-    tid = tid_p.permute(inv).contiguous()
+        phi_p, tid_p = vdt_ops.vdt_pyramid_far_field(
+            t(cps[perm[0]]), t(cps[perm[1]]), t(cps[perm[2]]), t(tid0),
+            t(phi0), dx, freeze_mask=t(freeze),
+            # extra_polish=2 is the JAX package's _exact_core default
+            extra_polish=2, phase=vdt_kernel.round_phase)
+        phi = phi_p.permute(inv).contiguous()
+        tid = tid_p.permute(inv).contiguous()
 
     if chamfer_passes > 0:
         phi = vdt_kernel.chamfer(phi, dx, chamfer_passes)
-    parity = _parity_device(parity_data, ni)
+    parity = _parity_device(parity_data, grid_shape[0])
     return torch.where(parity, -phi, phi), tid
+
+
+def sweep_core(tri_verts, band, parity_data, origin, dx: float, *, mode,
+               grid_shape, tile_shape, tiles_dim, band_chunk: int = 128,
+               max_passes: int = 64, eikonal_iters=None):
+    """The ``"propagate"`` and ``"eikonal"`` far fields on device tensors
+    (``sdfgenfast_tpu.pipeline.sdf_from_tri_verts``), up to the recompute:
+    ``band_distance_field`` over the (A, K) matrices of `band`, then
+
+    - ``"propagate"``: the plane scans; returns (their tid, parity, None);
+    - ``"eikonal"``: `eikonal_iters` (default 2 * max(n)) Jacobi
+      iterations outside the seeded band; returns (the band's tid, parity,
+      the signed eikonal field).
+
+    tri_verts (M, 3, 3) f32 world vertices and origin (3,) f32 tensors on
+    one device; dx a float32-representable float."""
+    phi0, tid0 = band_ops.band_distance_field(
+        tri_verts, band["active_ids"], band["cand"], band["cand_valid"],
+        origin, dx, tile_shape, tiles_dim, grid_shape, chunk=band_chunk)
+    parity = _parity_device(parity_data, grid_shape[0])
+    if mode == "propagate":
+        _, tid, _ = sweep_ops.propagate_closest_triangles(
+            phi0, tid0, tri_verts, origin, dx, max_passes=max_passes)
+        return tid, parity, None
+    iters = (eikonal_iters if eikonal_iters is not None
+             else 2 * max(grid_shape))
+    phi = sweep_ops.eikonal_far_field(phi0, tid0 >= 0, dx, iters)
+    return tid0, parity, torch.where(parity, -phi, phi)
+
+
+def _band_tensors(binned: Binned, config: SDFConfig, dev):
+    """The binning's band arrays that the route reads, on the device."""
+    if tuple(binned.tile_shape) != tuple(config.tile_shape):
+        raise ValueError(f"this Binned has {binned.tile_shape} tiles, the "
+                         f"config {tuple(config.tile_shape)}")
+    if reads_csr(config):
+        if binned.band_csr is None:
+            raise ValueError(
+                "this Binned holds no CSR band binning (it was made for the "
+                "dense path or another route); bin the mesh with this config")
+        return {k: dev(binned.band_csr[k])
+                for k in ("ids", "pair", "off", "cnt")}
+    if binned.active_ids is None:
+        raise ValueError(
+            "this Binned holds no (A, K) band matrices (it was made for the "
+            "dense path or another route); bin the mesh with this config")
+    return {"active_ids": dev(binned.active_ids), "cand": dev(binned.cand),
+            "cand_valid": dev(binned.cand_valid)}
 
 
 def make_level_set3(mesh: Mesh, grid: GridSpec,
@@ -327,11 +495,13 @@ def make_level_set3(mesh: Mesh, grid: GridSpec,
 
     `verts` ((N, 3) float32 tensor) overrides ``mesh.verts`` to obtain
     gradients; the binning is reused (valid while the vertices stay within
-    their cells). The dense or binned pipeline then runs without gradients
-    and keeps only the closest-triangle ids, and phi is evaluated again from
+    their cells). The distance pipeline then runs without gradients and
+    keeps only the closest-triangle ids, and phi is evaluated again from
     ``verts[tris]`` by ``ops.recompute.recompute_stage`` (kernels R1/R1b),
-    so the gradient reaches `verts`. On the binned path this phi is the
-    exact distance to each cell's triangle, tighter than the pyramid's."""
+    so the gradient reaches `verts`. On the binned exact path this phi is
+    the exact distance to each cell's triangle, tighter than the
+    pyramid's. ``"propagate"`` always takes its phi from the recompute;
+    ``"eikonal"`` in the seeded band only, with or without `verts`."""
     if mesh.is_empty:
         raise ValueError(
             "Cannot generate SDF from empty mesh (vertices or triangles are empty)"
@@ -356,25 +526,35 @@ def make_level_set3(mesh: Mesh, grid: GridSpec,
     tris = dev(binned.tris)
     dx = float(np.float32(grid.dx))
     origin = dev(np.asarray(grid.origin, np.float32))
+    far = None
     with torch.no_grad():
         if use_dense(config, len(mesh.tris)):
             phi, tid = dense_sign_core(v.detach(), tris, parity, origin, dx,
                                        grid_shape=grid.shape)
-        else:
-            csr = binned.band_csr
-            if csr is None:
-                raise ValueError(
-                    "this Binned holds no band binning (it was made for the "
-                    "dense path); bin the mesh with this config")
+        elif config.far_field == "exact":
             phi, tid = exact_core(
-                v.detach(), tris, dev(csr["ids"]), dev(csr["pair"]),
-                dev(csr["off"]), dev(csr["cnt"]), parity, origin, dx,
-                grid_shape=grid.shape, tiles_dim=binned.tiles_dim,
+                v.detach(), tris, _band_tensors(binned, config, dev), parity,
+                origin, dx, grid_shape=grid.shape, tiles_dim=binned.tiles_dim,
+                tile_shape=binned.tile_shape,
                 # the freeze threshold is capped by the band binned with
                 seed_band=min(max(config.exact_band, 3), binned.seed_band),
-                chamfer_passes=config.chamfer_passes)
-    if verts is not None:
+                ladder=ladder_schedule(config, grid.shape),
+                chamfer_passes=config.chamfer_passes,
+                band_chunk=config.band_chunk)
+        else:
+            tid, parity_b, far = sweep_core(
+                v.detach()[tris.long()], _band_tensors(binned, config, dev),
+                parity, origin, dx, mode=config.far_field,
+                grid_shape=grid.shape, tile_shape=binned.tile_shape,
+                tiles_dim=binned.tiles_dim, band_chunk=config.band_chunk,
+                max_passes=config.max_passes,
+                eikonal_iters=config.eikonal_iters)
+    if verts is not None or config.far_field != "exact":
+        if config.far_field == "exact":
+            parity_b = _parity_device(parity, grid.shape[0])
         phi = recompute_ops.recompute_stage(
-            v[tris.long()], tid, _parity_device(parity, grid.shape[0]),
+            v[tris.long()], tid, parity_b,
             np.asarray(grid.origin, np.float32), dx)
+        if far is not None:
+            phi = torch.where(tid >= 0, phi, far)
     return (phi, tid) if return_tid else phi

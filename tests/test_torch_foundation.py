@@ -3,8 +3,9 @@
 Grid sizing, .sdf bytes, host binning (band CSR + parity transports) and the
 torch device halves of the parity reconstruction must be EXACTLY the JAX
 package's: they are copies of framework-free code, so any difference is a
-porting bug. Also the import contract (no JAX, no nvcc needed) and the
-NotImplementedError surface of the slice."""
+porting bug. Also the import contract (no JAX, no nvcc needed), the
+NotImplementedError surface (``sign_mode="device"``) and the layout
+``bin_mesh`` builds for each ported route."""
 
 import os
 import subprocess
@@ -19,6 +20,7 @@ import sdfgenfast_tpu as J
 import sdfgenfast_tpu_torch as P
 from sdfgenfast_tpu import grid as jgrid
 from sdfgenfast_tpu.ops import sign_host as jsign
+from sdfgenfast_tpu.ops import vdt as jvdt
 from sdfgenfast_tpu_torch import grid as pgrid
 from sdfgenfast_tpu_torch import pipeline as ppipe
 from sdfgenfast_tpu_torch.ops import sign_host as psign
@@ -149,16 +151,62 @@ def test_require_cuda_and_backend_resolution():
 
 @pytest.mark.parametrize("cfg,tris", [
     (dict(sign_mode="device"), 1000),    # dense path, device sign
-    (dict(dense_max_tris=0, far_field="eikonal"), 2000),
-    (dict(dense_max_tris=0, far_field="propagate"), 2000),
     (dict(dense_max_tris=0, sign_mode="device"), 2000),
-    (dict(dense_max_tris=0, vdt_max_hop=8), 2000),
-    (dict(dense_max_tris=0, vdt_extra_rounds=2), 2000),
-    (dict(dense_max_tris=0, tile_shape=(4, 4, 4)), 2000),
 ])
 def test_unported_paths_raise(cfg, tris):
     with pytest.raises(NotImplementedError):
         ppipe.check_supported(P.SDFConfig(**cfg), tris)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(dense_max_tris=0, far_field="eikonal"),
+    dict(dense_max_tris=0, far_field="propagate"),
+    dict(dense_max_tris=0, vdt_max_hop=8),
+    dict(dense_max_tris=0, vdt_extra_rounds=2),
+    dict(dense_max_tris=0, tile_shape=(4, 4, 4)),
+], ids=["eikonal", "propagate", "capped", "flat", "tiles4"])
+def test_ported_paths_accepted(cfg):
+    """check_supported accepts the non-default far fields and schedules,
+    and bin_mesh builds what each route reads: K2's CSR at 8^3 tiles in
+    exact mode, the padded (A, K) candidate matrices elsewhere (propagate
+    and eikonal binned unpruned with the seed band exact_band)."""
+    config = P.SDFConfig(**cfg)
+    ppipe.check_supported(config, 2000)
+    mesh = P.icosphere(3, radius=1.0, center=(0.05, -0.02, 0.03))
+    grid = pgrid.sizing_mode2a_proportional(*mesh.bounds(), 24, 1)
+    b = ppipe.bin_mesh(mesh, grid, config)
+    assert b.tile_shape == tuple(config.tile_shape)
+    assert b.seed_band == (1 if config.far_field != "exact" else 3)
+    T = int(np.prod(b.tiles_dim))
+    if ppipe.reads_csr(config):
+        assert b.active_ids is None and b.cand is None
+        assert (b.band_csr["ids"] <= T).all()
+    else:
+        assert b.band_csr is None
+        A, K = b.cand.shape
+        assert b.active_ids.shape == (A,) and b.cand_valid.shape == (A, K)
+        live = b.active_ids < T
+        assert live.any() and (b.active_ids[~live] == T).all()
+        assert not b.cand_valid[~live].any()
+    # the exact far field's schedule, as sdfgenfast_tpu.pipeline picks it
+    sched = ppipe.ladder_schedule(config, grid.shape)
+    if "vdt_max_hop" not in cfg and "vdt_extra_rounds" not in cfg:
+        assert sched is None  # the pyramid
+        return
+    hop = cfg.get("vdt_max_hop")
+    for shape, extra in ((grid.shape, 2), ((300, 20, 20), 4)):
+        strides, jacobi = ppipe.ladder_schedule(config, shape)
+        assert jacobi == (hop is not None)
+        assert strides == jvdt.stride_ladder(
+            max(shape), max_hop=hop,
+            extra_rounds=cfg.get("vdt_extra_rounds", extra))
+
+
+def test_check_supported_rejects_unknown_modes():
+    with pytest.raises(ValueError, match="far_field"):
+        ppipe.check_supported(P.SDFConfig(far_field="sweep"), 2000)
+    with pytest.raises(ValueError, match="sign_mode"):
+        ppipe.check_supported(P.SDFConfig(sign_mode="gpu"), 2000)
 
 
 def test_dense_mesh_raises_through_api():
