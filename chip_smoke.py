@@ -52,7 +52,17 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      64^3 on the card and on the CPU twins; one ``train_step`` in propagate
      and in eikonal mode (R1/R1b, the gradient against the twins'); each
      route's wall per call split into host, device and copy back, the
-     stream time of its torch modules and K3 summed over a call.
+     stream time of its torch modules and K3 summed over a call; every
+     route, the default included, bit-equal card against CPU at 64^3;
+  7. the device sign (``sign_mode="device"``, ``ops/sign.parity_field``),
+     after every timing above: box36 at its main-path grid (dense),
+     sphere82k at 256^3 and 512^3 (binned) and eikonal at 256^3 through
+     the entry points, the device parity bit-equal to the host parity on
+     every cell, the SDF bit-equal to host mode's with the same launches,
+     the goldens' bars (and the box CLI golden in device mode); one
+     ``train_step`` in each sign mode on box36 and sphere82k 256^3; the
+     device parity's time beside the host parity's, each mode's wall split,
+     the parity's peak memory.
 
 Prints one JSON line of per-kernel results, then the card line, then, as the
 last line, ``{"ok": true, "device": {...}}``. Exits non-zero on any failure.
@@ -162,10 +172,11 @@ PEAK_BYTES = 3.35e12
 # kernel's formula: a (cell, triangle) pair of the separable dense distance,
 # a (cell, candidate) pair of the band kernel's walk and a (row of 8 cells,
 # candidate) pair of its row halves, a triangle of its coefficient pass
-# (band_coefs_kernel's sums, products, clamps, two divisions and rsqrt), a
-# donor of a jump-flood round (3 subtractions, 3 products, 2 sums, 1
-# compare), an offset of a chamfer pass (1 add, 1 min), a triangle of R1's
-# table and a cell of R1 and of R1b.
+# (band_coefs_kernel's sums, products, clamps, four divisions and the
+# normal's square root and division), a donor of a jump-flood round (3
+# subtractions, 3 products, 2 sums, 1 compare), an offset of a chamfer
+# pass (1 add, 1 min), a triangle of R1's table and a cell of R1 and of
+# R1b.
 OPS_DENSE_PAIR = 45
 # the dense pair's plane test alone, for a pair the cull skips: h = (cx*x +
 # (cy*y + c0)) + cz*z, h*h and the compare with the cell's best
@@ -185,7 +196,7 @@ OPS_DENSE_PLANE = 8
 # best issues as a predicated MOV.
 OPS_BAND_PAIR = 56
 OPS_BAND_ROW = 30
-OPS_BAND_COEF = 150
+OPS_BAND_COEF = 151
 OPS_VDT_DONOR = 9
 OPS_CHAMFER_OFFSET = 2
 # R1's table (recompute_terms_kernel): x13 and x23 (6), m13, m23 and d
@@ -259,8 +270,8 @@ def k2_compare(label, got, want, rows):
 
 
 def check_k2(torch, device, mesh, grid):
-    """K2 vs its twin: the coefficient pass within rtol 3e-6 of
-    ``_band_coefs``; the rows on the main path's CSR and on hand-made
+    """K2 vs its twin: the coefficient pass bit-equal to ``_band_coefs``;
+    the rows on the main path's CSR bit-equal to the twin's, on hand-made
     segments (testing.k2_segments) within the bars of k2_compare. Times the two
     launches alone (coefficient pass + tile walk) and the five row fills
     apart. Returns a dict of errors, times and bounds."""
@@ -294,11 +305,20 @@ def check_k2(torch, device, mesh, grid):
     want = band_kernel.band_rows_reference(*args, **kw)
     torch.cuda.synchronize()
     active = csr["ids"][csr["ids"] < T]
-    err, mism = k2_compare("K2", got, want, dev(active).long())
+    live = dev(active).long()
+    err, mism = k2_compare("K2", got, want, live)
+    # on the main path's CSR every word equals the twin's: each operation
+    # rounds once on both sides (the normal's 1/sqrt included)
+    rows_bits = sum(int((bits(torch, x[live]) != bits(torch, y[live])).sum())
+                    for x, y in zip(got, want))
     print(f"K2 band_rows vs twin: A={len(active)} active tiles, "
           f"P={len(csr['pair'])}, tid mismatches {mism}, max|err| "
-          f"{err:.3e}; coefficient table max|err| {coef_err:.3e} "
-          f"({coef_bits} of {coef.numel()} words not bit-equal)", flush=True)
+          f"{err:.3e}, {rows_bits} row words not bit-equal; coefficient "
+          f"table max|err| {coef_err:.3e} ({coef_bits} of {coef.numel()} "
+          f"words not bit-equal)", flush=True)
+    if rows_bits or coef_bits:
+        raise AssertionError(f"K2 vs twin on the main path: {rows_bits} row "
+                             f"and {coef_bits} coefficient words differ")
 
     hand = testing.k2_segments(tri9.reshape(-1, 3, 3).cpu().numpy(), dx,
                        binned.tiles_dim, active, (1, 129, 20))
@@ -1862,15 +1882,14 @@ def time_differentiable(torch, r, card, label):
 # and its far-field bar against the golden, in dx. Eikonal's is the
 # reference's own bar for its CUDA backend (tests/test_pipeline.py:95-97).
 # The golden bar is 0.2 dx; where the JAX package itself misses it on a
-# route, the bar is the JAX package's gap + 0.05 dx
-# (tools/jax_far_field_gaps.py, on the CPU): the capped ladder (hop 8)
-# reads 0.2986 dx at the 128^3 golden, the flat ladder with 2 polish rounds
-# 0.1246 dx at 128^3 but 0.2004 dx at the 256^3 golden that this smoke
-# holds it to (PERF.md section 6).
+# route, the bar is the JAX package's gap + 0.05 dx at the 256^3 golden
+# that this smoke holds the route to (tools/jax_far_field_gaps.py, on the
+# CPU): the capped ladder (hop 8) reads 0.2474 dx there, the flat ladder
+# with 2 polish rounds 0.2004 dx (PERF.md section 6).
 ROUTES = (
     ("propagate", dict(far_field="propagate"), 0.2),
     ("eikonal", dict(far_field="eikonal"), 25.0),
-    ("capped", dict(vdt_max_hop=8), 0.2986 + 0.05),
+    ("capped", dict(vdt_max_hop=8), 0.2474 + 0.05),
     ("flat", dict(vdt_extra_rounds=2), 0.2004 + 0.05),
     ("tiles4x4x16", dict(tile_shape=(4, 4, 16)), 0.2),
 )
@@ -1964,11 +1983,13 @@ def far_field_routes(torch, device, card, path, mesh, grid, golden, far_key,
 
 
 def routes_card_vs_cpu(torch, device):
-    """Every route on icosphere(4) (5120 triangles) at 64^3 on the card and
-    on the CPU twins, from one binning: the CPU tests' bars (0 sign
-    mismatches off the surface, the band at rtol 5e-5, every cell within
-    0.05 dx; eikonal rtol 1e-5). Returns {route: largest |card - cpu| in
-    dx}."""
+    """Every route, the default (pyramid) route included, on icosphere(4)
+    (5120 triangles) at 64^3 on the card and on the CPU twins, from one
+    binning: the CPU tests' bars (0 sign mismatches off the surface, the
+    band at rtol 5e-5, every cell within 0.05 dx; eikonal rtol 1e-5), then
+    every cell bit-equal (each operation is correctly rounded on both
+    sides: no FMA contraction, correctly rounded roots and divisions).
+    Returns {route: cells not bit-equal}."""
     from sdfgenfast_tpu_torch.grid import sizing_mode2a_proportional
     from sdfgenfast_tpu_torch.mesh import icosphere
     from sdfgenfast_tpu_torch.pipeline import SDFConfig, bin_mesh, make_level_set3
@@ -1979,7 +2000,7 @@ def routes_card_vs_cpu(torch, device):
         raise AssertionError(f"card vs CPU grid {grid.shape}")
     counters = route_counters()
     out = {}
-    for name, knobs, _ in ROUTES:
+    for name, knobs, _ in (("default", {}, 0.2),) + ROUTES:
         config = SDFConfig(**knobs)
         binned = bin_mesh(mesh, grid, config)
         for fn in counters:
@@ -2013,11 +2034,14 @@ def routes_card_vs_cpu(torch, device):
             raise AssertionError(f"route {name} 64^3: card vs CPU "
                                  f"{err / grid.dx:.4f} dx")
         bit = int((card_phi.view(np.int32) != cpu_phi.view(np.int32)).sum())
-        out[name] = err / grid.dx
+        out[name] = bit
         print(f"route {name} icosphere(4) 64^3, card vs CPU twins: 0 sign "
               f"mismatches, band equal, max |diff| {err / grid.dx:.2e} dx, "
               f"{bit} of {card_phi.size} cells not bit-equal; launches "
               f"{got}; the CPU run {cpu_s:.1f} s", flush=True)
+    if any(out.values()):
+        raise AssertionError(f"card vs CPU twins at 64^3: cells not "
+                             f"bit-equal by route {out}")
     return out
 
 
@@ -2111,10 +2135,12 @@ def stream_ms(torch, targets, fn):
 def route_times(torch, device, card, mesh, grid, routes, calls=3):
     """For each route: the wall per call (median of `calls` warm calls),
     split into host (``bin_mesh``), device (``make_level_set3``,
-    synchronised) and copy back; the stream time of the new torch modules
+    synchronised) and copy back; the stream time of the torch modules
     (tile evaluator, band_distance_field, Gauss-Seidel rounds, plane scans,
-    eikonal) in one more call; and peak device memory."""
+    eikonal, the device parity) in one more call; and peak device
+    memory."""
     from sdfgenfast_tpu_torch.ops import band as band_ops
+    from sdfgenfast_tpu_torch.ops import sign as sign_ops
     from sdfgenfast_tpu_torch.ops import sweep as sweep_ops
     from sdfgenfast_tpu_torch.ops import tiled as tiled_ops
     from sdfgenfast_tpu_torch.ops import vdt as vdt_ops
@@ -2126,7 +2152,8 @@ def route_times(torch, device, card, mesh, grid, routes, calls=3):
                (vdt_ops, "_gs_round", "Gauss-Seidel rounds"),
                (vdt_ops, "_gs_axes_round", "Gauss-Seidel rounds"),
                (sweep_ops, "propagate_closest_triangles", "plane scans"),
-               (sweep_ops, "eikonal_far_field", "eikonal"))
+               (sweep_ops, "eikonal_far_field", "eikonal"),
+               (sign_ops, "parity_field", "device parity"))
     out = {}
     for name, knobs, _ in routes:
         config = SDFConfig(**knobs)
@@ -2162,6 +2189,324 @@ def route_times(torch, device, card, mesh, grid, routes, calls=3):
               + (f" ({out[name]['passes']} passes)" if "passes" in out[name]
                  else ""), flush=True)
     return out
+
+
+# The device sign (sign_mode="device", ops/sign.py): every launch counter a
+# path of this phase can move
+def sign_counters():
+    from sdfgenfast_tpu_torch.ops import dense
+
+    return route_counters() + (dense.dense_stream,)
+
+
+def host_parity_on_card(torch, device, binned, ni):
+    """The host sign's parity as the port's host path builds it on the card:
+    the host transport uploaded and expanded (``parity_from_crossings_device``
+    or the bit-packed unpack)."""
+    from sdfgenfast_tpu_torch.pipeline import _parity_device
+
+    data = (binned.parity_packed if binned.parity_packed is not None
+            else binned.parity_crossings)
+    return _parity_device(torch.from_numpy(data).to(device), ni)
+
+
+def device_parity(torch, device, sign, grid, chunk, arrays=None):
+    """``ops/sign.parity_field`` on the card from a device-mode binning's
+    SignBinning (`arrays`: its tensors, uploaded once by the caller)."""
+    from sdfgenfast_tpu_torch.ops import sign as sign_ops
+
+    if arrays is None:
+        arrays = sign_arrays(torch, device, sign)
+    return sign_ops.parity_field(*arrays, sign.tile_shape, sign.tiles_dim,
+                                 grid.shape, chunk=chunk)
+
+
+def sign_arrays(torch, device, sign):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (sign.f, sign.window, sign.active_ids, sign.cand,
+                      sign.cand_valid)]
+
+
+def median_event_ms(torch, fn, calls=WARM_CALLS):
+    """Median device time of fn() over `calls` warm calls, one pair of CUDA
+    events around each."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def sign_cases(grids, cases, box, box_grid):
+    """(label, mesh, grid, knobs, run, golden check) of each device-sign
+    case at bench.py's sizes: box36 at its main-path grid (dense, K1),
+    sphere82k at 256^3 and 512^3 (binned: K2, K3, K4), eikonal at 256^3
+    (R1). `run(config)` calls the entry point a user would call; the
+    golden check returns the far-field gap in dx (None: no golden)."""
+    from sdfgenfast_tpu_torch import generate_from_file, generate_sdf
+
+    out = [("box36", box, box_grid, {},
+            lambda device, cfg: generate_sdf(
+                box.verts, box.tris, box_grid.origin, box_grid.dx,
+                *box_grid.shape, device=device, config=cfg), None)]
+    for n, label, knobs, bar in ((256, "sphere82k 256^3", {}, 0.2),
+                                 (512, "sphere82k 512^3", {}, 0.2),
+                                 (256, "eikonal sphere82k 256^3",
+                                  dict(far_field="eikonal"), 25.0)):
+        mesh, grid = grids[n]
+        path = os.path.join(RESOURCES, cases[n][0])
+        golden, far_key, stride = cases[n][1:]
+
+        def run(device, cfg, path=path, n=n):
+            sdf, _ = generate_from_file(path, nx=n - 2, device=device,
+                                        far_field=cfg.far_field, config=cfg)
+            return sdf
+
+        def check(sdf, grid=grid, golden=golden, far_key=far_key,
+                  stride=stride, bar=bar):
+            return check_golden(sdf, os.path.join(GOLDENS, golden), far_key,
+                                stride, grid, far_bar=bar)
+
+        out.append((label, mesh, grid, knobs, run, check))
+    return out
+
+
+def device_sign_phase(torch, device, card, grids, cases, box, box_grid):
+    """The device sign on the card, each case at bench.py's sizes
+    (:func:`sign_cases`): the device parity bit-equal on every cell to the
+    host parity as the host path builds it on the card; the entry point's
+    SDF in device mode bit-equal to host mode's, with the same launches
+    of every kernel (counters set to 0 just before each call); the golden
+    bars where the case has a golden, and the box CLI golden in device
+    mode; the device parity makes no host sync. Returns {label:
+    results}."""
+    from sdfgenfast_tpu_torch import generate_sdf
+    from sdfgenfast_tpu_torch.grid import sizing_mode2a_proportional
+    from sdfgenfast_tpu_torch.io import mesh_io
+    from sdfgenfast_tpu_torch.ops import dense
+    from sdfgenfast_tpu_torch.pipeline import SDFConfig, bin_mesh
+
+    counters = sign_counters()
+    out = {}
+    for label, mesh, grid, knobs, run, check in sign_cases(grids, cases, box,
+                                                           box_grid):
+        host_cfg = SDFConfig(**knobs)
+        dev_cfg = SDFConfig(sign_mode="device", **knobs)
+        bh = bin_mesh(mesh, grid, host_cfg)
+        bd = bin_mesh(mesh, grid, dev_cfg)
+        ph = host_parity_on_card(torch, device, bh, grid.shape[0])
+        # no host sync inside the field (its inputs uploaded first), so
+        # generate_sdf_batch's host binning of the next mesh overlaps it
+        arrays = sign_arrays(torch, device, bd.sign)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pd = device_parity(torch, device, bd.sign, grid,
+                               dev_cfg.sign_chunk, arrays)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        del arrays
+        differ = int((ph != pd).sum())
+        if differ or pd.dtype != torch.bool or pd.shape != ph.shape:
+            raise AssertionError(f"device sign {label}: the device parity "
+                                 f"differs from the host parity on {differ} "
+                                 f"cells")
+        inside = int(pd.sum())
+        del ph, pd
+        sdfs, launches = {}, {}
+        for mode, cfg in (("host", host_cfg), ("device", dev_cfg)):
+            for fn in counters:
+                fn.launches = 0
+            sdfs[mode] = run(device, cfg)
+            torch.cuda.synchronize()
+            launches[mode] = {fn.__name__: fn.launches for fn in counters}
+        if launches["device"] != launches["host"]:
+            raise AssertionError(f"device sign {label}: launches "
+                                 f"{launches['device']}, host mode "
+                                 f"{launches['host']}")
+        need = (("recompute_forward",) if knobs.get("far_field") == "eikonal"
+                else ("dense_stream",) if label == "box36" else
+                ("band_coefs", "band_rows", "round_phase", "chamfer"))
+        if any(launches["device"][k] < 1 for k in need):
+            raise AssertionError(f"device sign {label}: launches "
+                                 f"{launches['device']}, need {need}")
+        a, b = sdfs["device"], sdfs["host"]
+        if a.shape != grid.shape or not np.isfinite(a).all():
+            raise AssertionError(f"device sign {label}: bad output")
+        differ = int((a.view(np.int32) != b.view(np.int32)).sum())
+        if differ:
+            raise AssertionError(f"device sign {label}: the SDF differs from "
+                                 f"host mode's on {differ} cells")
+        far = None if check is None else check(a)
+        out[label] = {"launches": launches["device"], "far_err_dx": far,
+                      "K": int(bd.sign.cand.shape[1]),
+                      "A": int((bd.sign.active_ids
+                                < np.prod(bd.sign.tiles_dim)).sum()),
+                      "A_pad": int(len(bd.sign.active_ids)),
+                      "mesh": mesh, "grid": grid, "knobs": knobs}
+        print(f"device sign {label} {grid.shape}: parity bit-equal to the "
+              f"host parity on all {a.size} cells ({inside} inside); SDF "
+              f"bit-equal to host mode's; launches as host mode's "
+              f"{launches['device']}"
+              + ("" if far is None else
+                 f"; golden bars met (0 sign mismatches, band rtol 5e-5, "
+                 f"far field {far:.4f} dx)")
+              + f"; 2D sign tiles {bd.sign.tile_shape}: "
+              f"{out[label]['A']} active of {int(np.prod(bd.sign.tiles_dim))}"
+              f" (padded to {out[label]['A_pad']}), K = {out[label]['K']}",
+              flush=True)
+    # the box CLI golden (box345.stl, mode 2a at 64) in device mode
+    with open(os.path.join(GOLDENS, "manifest.json")) as fh:
+        entry = json.load(fh)["box_stl_64_mode2a"]
+    m, mn, mx = mesh_io.load_mesh(os.path.join(RESOURCES, entry["mesh"]))
+    grid = sizing_mode2a_proportional(mn, mx, int(entry["cli_args"][0]),
+                                      int(entry["cli_args"][1]))
+    dense.dense_stream.launches = 0
+    phi = generate_sdf(m.verts, m.tris, grid.origin, grid.dx, *grid.shape,
+                       device=device, config=SDFConfig(sign_mode="device"))
+    if dense.dense_stream.launches != 1:
+        raise AssertionError("device sign box golden: K1 did not launch once")
+    far = golden_bars(phi, grid, os.path.join(GOLDENS, entry["golden"]))
+    out["box_stl_64"] = {"far_err_dx": far}
+    print(f"device sign box_stl_64_mode2a {phi.shape}: golden bars met (0 "
+          f"sign mismatches, band rtol 5e-5, far field {far:.4f} dx)",
+          flush=True)
+    return out
+
+
+def device_sign_steps(torch, device, grids, box, box_grid):
+    """One ``SDFGenerator.train_step`` in device sign mode on box36 and on
+    sphere82k at 256^3 beside the host mode's, from one target (the
+    host-mode forward of the 0.95-scaled vertices): R1 and R1b launch,
+    and the loss and the vertex gradient agree within R1b's bar (1e-4 of
+    the largest vertex gradient). Returns {label: results}."""
+    from sdfgenfast_tpu_torch.models import SDFGenerator
+    from sdfgenfast_tpu_torch.pipeline import SDFConfig
+
+    counters = sign_counters()
+    out = {}
+    for label, mesh, grid in (("box36", box, box_grid),
+                              ("sphere82k 256^3", *grids[256])):
+        target = None
+        res = {}
+        for mode in ("host", "device"):
+            model = SDFGenerator(mesh, grid, SDFConfig(sign_mode=mode),
+                                 device=device)
+            v0 = model.params
+            if target is None:
+                with torch.no_grad():
+                    target = model.forward(v0 * 0.95)
+            for fn in counters:
+                fn.launches = 0
+            new, loss = model.train_step(v0, target, lr=1e-2)
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counters}
+            v = v0.clone().requires_grad_()
+            (g,) = torch.autograd.grad(model.loss(v, target), v)
+            res[mode] = (float(loss), g.double(), launches, new)
+        (lh, gh, nh, _), (ld, gd, nd, new) = res["host"], res["device"]
+        scale = float(gh.abs().max())
+        err = float((gd - gh).abs().max())
+        if nd != nh or nd["recompute_forward"] < 1 or nd[
+                "recompute_backward"] < 1:
+            raise AssertionError(f"device sign step {label}: launches {nd}, "
+                                 f"host mode {nh}")
+        if not (scale > 0 and err <= 1e-4 * scale and abs(ld - lh)
+                <= 1e-4 * abs(lh) and bool(torch.isfinite(new).all())):
+            raise AssertionError(f"device sign step {label}: loss {ld} vs "
+                                 f"{lh}, gradient {err:.3e} of {scale:.3e}")
+        out[label] = {"loss": ld, "grad_err": err / scale, "launches": nd,
+                      "bit_equal": err == 0.0 and ld == lh}
+        print(f"device sign SDFGenerator.train_step {label}: loss {ld:.6e} "
+              f"(host mode {lh:.6e}), vertex gradient within {err / scale:.2e}"
+              f" of max|g| {scale:.3e} of the host mode's"
+              f"{' (bit-equal)' if out[label]['bit_equal'] else ''}; "
+              f"launches {nd}", flush=True)
+    return out
+
+
+def device_sign_times(torch, device, card, phase):
+    """For each case of :func:`device_sign_phase`: the device parity
+    (``parity_field`` on arrays already on the card, CUDA events, median
+    of 5 warm calls) and its peak memory beside the host parity it
+    replaces (its transport computed on the host, then uploaded and
+    expanded on the card; each part timed alike), and each sign mode's
+    wall split into host, device and copy back (:func:`route_times`, the
+    parity's stream time within the call among its modules)."""
+    from sdfgenfast_tpu_torch.ops import sign as sign_ops
+    from sdfgenfast_tpu_torch.pipeline import (SDFConfig, _host_parity_choose,
+                                               _parity_device, _sign_binning)
+
+    out = {}
+    for label, r in phase.items():
+        if "mesh" not in r:
+            continue
+        mesh, grid, knobs = r["mesh"], r["grid"], r["knobs"]
+        host_cfg = SDFConfig(**knobs)
+        dev_cfg = SDFConfig(sign_mode="device", **knobs)
+        ni = grid.shape[0]
+        t = {"host_parity_host": [], "sign_binning_host": []}
+        for _ in range(WARM_CALLS):
+            t0 = time.perf_counter()
+            packed, cross = _host_parity_choose(mesh, grid,
+                                                host_cfg.parity_transport)
+            t1 = time.perf_counter()
+            sb = sign_ops.bin_triangles_2d(mesh.verts, mesh.tris, grid,
+                                           dev_cfg.tile2d_shape)
+            t2 = time.perf_counter()
+            t["host_parity_host"].append((t1 - t0) * 1e3)
+            t["sign_binning_host"].append((t2 - t1) * 1e3)
+        data = packed if packed is not None else cross
+        host_dev_ms = median_event_ms(torch, lambda: _parity_device(
+            torch.from_numpy(data).to(device), ni))
+        sb_pad = _sign_binning(mesh, grid, dev_cfg)
+        upload_ms = median_event_ms(torch, lambda: sign_arrays(
+            torch, device, sb_pad))
+        arrays = sign_arrays(torch, device, sb_pad)
+        dev_ms = median_event_ms(torch, lambda: device_parity(
+            torch, device, sb_pad, grid, dev_cfg.sign_chunk, arrays))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        field = device_parity(torch, device, sb_pad, grid, dev_cfg.sign_chunk,
+                              arrays)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        del field, arrays
+        torch.cuda.empty_cache()
+        walls = route_times(torch, device, card, mesh, grid, (
+            (f"{label}, host sign", knobs, None),
+            (f"{label}, device sign", dict(knobs, sign_mode="device"), None)),
+            calls=WARM_CALLS)
+        hp = statistics.median(t["host_parity_host"])
+        sbm = statistics.median(t["sign_binning_host"])
+        out[label] = {"host_parity_host_ms": hp, "host_parity_device_ms":
+                      host_dev_ms, "sign_binning_host_ms": sbm,
+                      "sign_upload_ms": upload_ms, "device_parity_ms": dev_ms,
+                      "parity_peak_mib": peak, "walls": walls,
+                      "transport": "packed" if packed is not None
+                      else f"crossings ({cross.shape[0]} rows)"}
+        print(f"[{card}] device sign {label} {grid.shape} (median of "
+              f"{WARM_CALLS}): device parity {dev_ms:.3f} ms on the card "
+              f"(2D binning {sbm:.1f} ms on the host, upload {upload_ms:.3f}"
+              f" ms; K = {r['K']}, {r['A_pad']} tile rows; peak memory "
+              f"{peak:.1f} MiB above the inputs) beside the host parity "
+              f"{hp:.1f} ms on the host + {host_dev_ms:.3f} ms upload and "
+              f"expansion on the card ({out[label]['transport']})",
+              flush=True)
+    return out
+
+
+def main():
+    import torch
 
 
 def main():
@@ -2540,6 +2885,19 @@ def main():
         if count != routes[name]["launches"]["round_phase"]:
             raise AssertionError(f"route {name}: {count} K3 rounds timed")
 
+    # -- 7. the device sign ---------------------------------------------------
+    # after every timing above, so that its host work does not touch them:
+    # box36 (dense), sphere82k at 256^3 and 512^3 (binned) and eikonal at
+    # 256^3 in sign_mode="device" against the host sign, a train_step in
+    # each mode, then the device parity's times beside the host parity's
+    torch.cuda.empty_cache()
+    sign_phase = device_sign_phase(torch, device, card, grids, cases, box,
+                                   box_grid)
+    torch.cuda.empty_cache()
+    sign_steps = device_sign_steps(torch, device, grids, box, box_grid)
+    torch.cuda.empty_cache()
+    device_sign_times(torch, device, card, sign_phase)
+
     # the bounds at the shapes timed (see bound_ms)
     n_box, n_torus = int(np.prod(box_grid.shape)), int(np.prod(torus_grid.shape))
     n_256 = int(np.prod(grids[256][1].shape))
@@ -2748,6 +3106,9 @@ def main():
     by_route = {"band_coefs": "band_coefs", "band_rows": "band_rows",
                 "vdt_round": "round_phase", "chamfer": "chamfer",
                 "recompute_phi": "recompute_forward"}
+    # and each device-sign case's (phase 7; the steps': R1 and R1b)
+    by_sign = dict(by_route, dense_stream="dense_stream",
+                   recompute_vjp="recompute_backward")
     for row in kernels:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]
         row.setdefault("library_ms", None)
@@ -2755,6 +3116,13 @@ def main():
             row["launches_by_route"] = {
                 name: r["launches"][by_route[row["name"]]]
                 for name, r in routes.items()}
+        if row["name"] in by_sign:
+            key = by_sign[row["name"]]
+            row["launches_device_sign"] = {
+                label: r["launches"][key] for label, r in list(
+                    sign_phase.items()) + [(f"step {k}", v) for k, v in
+                                           sign_steps.items()]
+                if "launches" in r}
     # a kernel above its bound means a wrong count or a wrong time
     over = [(row["name"], row["bound_ms"] / row["ms"]) for row in kernels
             if row["bound_ms"] > row["ms"]]

@@ -1,11 +1,13 @@
 """sdfgenfast_tpu_torch — the PyTorch + CUDA port of ``sdfgenfast_tpu``.
 
-The mesh -> signed-distance-field generator with the host sign: the
-default ``SDFConfig()`` path, both halves (the dense path, meshes with at
-most 1024 triangles, kernel K1; the binned exact path, larger meshes,
-kernels K2, K3 and K4), the flat and capped jump-flood ladders, any band
-tile shape, and the ``"propagate"`` and ``"eikonal"`` far fields (R1 from
-the closest-triangle ids). The kernels are hand-written in CUDA for Hopper (``csrc/*.cu``,
+The mesh -> signed-distance-field generator: the default ``SDFConfig()``
+path, both halves (the dense path, meshes with at most 1024 triangles,
+kernel K1; the binned exact path, larger meshes, kernels K2, K3 and K4),
+the flat and capped jump-flood ladders, any band tile shape, the
+``"propagate"`` and ``"eikonal"`` far fields (R1 from the closest-triangle
+ids), and both sign modes (``sign_mode="host"``, the x-ray parity computed
+on the host; ``"device"``, its float64 predicates in torch on the device,
+``ops/sign.py``). The kernels are hand-written in CUDA for Hopper (``csrc/*.cu``,
 built on first use by ``kernels/build.py``), each with a plain-torch twin
 that runs on CPU tensors. The JAX package ``sdfgenfast_tpu`` is the
 reference it is tested against; this package imports neither it nor JAX.

@@ -130,7 +130,8 @@ __device__ __forceinline__ void triangle_row(const float* v, float4* row) {
   const float cry = x13z * x23x - x13x * x23z;
   const float crz = x13x * x23y - x13y * x23x;
   const float cr2 = crx * crx + cry * cry + crz * crz;
-  const float rn = rsqrtf(fmaxf(cr2, 1e-37f));
+  // 1 / sqrt, each correctly rounded: the twin computes the same on the CPU
+  const float rn = __fdiv_rn(1.0f, __fsqrt_rn(fmaxf(cr2, 1e-37f)));
   const float nx = crx * rn, ny = cry * rn, nz = crz * rn;
 
   row[0] = make_float4(nx, ny, nz, -(nx * cx + ny * cy + nz * cz));

@@ -122,7 +122,10 @@ def _band_coefs(tri9):
                       x13[:, 2] * x23[:, 0] - x13[:, 0] * x23[:, 2],
                       x13[:, 0] * x23[:, 1] - x13[:, 1] * x23[:, 0]], dim=1)
     cr2 = _dot(cr, cr)
-    n = cr * torch.rsqrt(torch.clamp(cr2, min=1e-37))[:, None]
+    # 1 / sqrt, each correctly rounded (an rsqrt rounds differently on the
+    # CPU and the card); the divisor is a tensor, never a Python scalar
+    root = sqrt_f32(torch.clamp(cr2, min=1e-37))
+    n = cr * (torch.ones_like(root) / root)[:, None]
     degen = (cr2 <= 1e-30).to(torch.float32)
     return torch.cat([
         n, -_dot(n, c)[:, None], g23, -_dot(g23, c)[:, None],

@@ -10,8 +10,8 @@ tensor lives on.
 Why host: the parity field is non-differentiable (piecewise constant in the
 vertex positions) and is consumed once per binning — the same lifecycle as the
 host-side triangle binning. Computing it here in true float64 gives exact
-reference parity. (The JAX package's device predicates,
-``SDFConfig(sign_mode="device")``, are not ported.)
+reference parity. ``SDFConfig(sign_mode="device")`` computes the same
+field on the device instead (``ops/sign.py``).
 
 Vectorization: triangles are bucketed by rasterized (j, k) bbox size; each
 bucket is evaluated as one (Mb, bj, bk) batch and accumulated into the global

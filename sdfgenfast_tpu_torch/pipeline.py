@@ -1,22 +1,26 @@
-"""End-to-end SDF pipeline in PyTorch: every far-field mode of the JAX
-package on one device, with the host sign.
+"""End-to-end SDF pipeline in PyTorch: every far-field mode and both sign
+modes of the JAX package on one device.
 
-Counterpart of ``sdfgenfast_tpu/pipeline.py`` for ``sign_mode="host"``
-(``sign_mode="device"`` raises NotImplementedError). The path splits on the
+Counterpart of ``sdfgenfast_tpu/pipeline.py``. The path splits on the
 far-field mode and, in ``"exact"`` mode, on the triangle count
-(:func:`use_dense`), as in the JAX package.
+(:func:`use_dense`), as in the JAX package. The sign comes from the x-ray
+parity: with ``sign_mode="host"`` the host computes it (crossings or
+bit-packed) while binning; with ``sign_mode="device"`` the host bins the
+triangles to 2D (j, k) tiles and ``ops/sign.parity_field`` evaluates the
+float64 predicates on the device, equal to the host parity on every cell.
 
 Dense path (``"exact"``, at most ``dense_max_tris`` triangles,
 :func:`dense_sign_core`):
 
-  1. host: the x-ray parity (crossings or bit-packed), no band binning;
+  1. host: the x-ray parity (or the 2D sign binning), no band binning;
   2. device: vertex gather -> K1 (one kernel up to 1024 triangles): the
      exact distance of every cell to every triangle -> sign from the parity.
 
 Binned exact path (``"exact"``, :func:`exact_core`):
 
   1. host: native band binning (seed band max(exact_band, 3), pruned) +
-     x-ray parity, exactly the JAX package's host layer;
+     x-ray parity (or the 2D sign binning), exactly the JAX package's host
+     layer;
   2. device, the band: 8^3 tiles through the K2 kernel over CSR candidate
      segments; any other tile shape through the tile evaluator
      (``ops/tiled.py``) over the padded (A, K) candidate matrices; exact
@@ -66,6 +70,7 @@ from .ops import band as band_ops
 from .ops import band_kernel
 from .ops import dense as dense_ops
 from .ops import recompute as recompute_ops
+from .ops import sign as sign_ops
 from .ops import sign_host as sign_host_ops
 from .ops import sweep as sweep_ops
 from .ops import tiled as tiled_ops
@@ -77,21 +82,21 @@ __all__ = ["SDFConfig", "Binned", "bin_mesh", "binned_from_arrays",
            "ladder_schedule", "make_level_set3", "sweep_core", "use_dense"]
 
 DENSE_MAX_TRIS = dense_ops.DENSE_MAX_TRIS
-_DEFAULT_TILE_2D = (8, 128)  # sdfgenfast_tpu/ops/sign.py DEFAULT_TILE_2D
 
 
 @dataclasses.dataclass(frozen=True)
 class SDFConfig:
     """Pipeline configuration: the same fields and defaults as
     ``sdfgenfast_tpu.pipeline.SDFConfig``, checked by
-    :func:`check_supported` (``sign_mode="device"`` is not ported)."""
+    :func:`check_supported`. ``tile2d_shape`` and ``sign_chunk`` are the
+    device sign's 2D tiles and tiles a chunk."""
 
     exact_band: int = 1
     far_field: str = "exact"
     sign_mode: str = "host"
     parity_transport: str = "auto"
     tile_shape: Tuple[int, int, int] = band_ops.DEFAULT_TILE
-    tile2d_shape: Tuple[int, int] = _DEFAULT_TILE_2D
+    tile2d_shape: Tuple[int, int] = sign_ops.DEFAULT_TILE_2D
     max_passes: int = 64
     vdt_extra_rounds: Optional[int] = None
     vdt_max_hop: Optional[int] = None
@@ -106,8 +111,11 @@ class SDFConfig:
 class Binned:
     """Host-side preprocessing product (NumPy arrays).
 
-    Exactly one of parity_packed ((ceil(ni/8), nj, nk) uint8) and
-    parity_crossings ((C, nj, nk) int16) is set. The band binning is None
+    The sign: with ``sign_mode="host"`` exactly one of parity_packed
+    ((ceil(ni/8), nj, nk) uint8) and parity_crossings ((C, nj, nk) int16)
+    is set; with ``"device"`` neither is, and `sign` holds the 2D (j, k)
+    binning, its active ids padded by :func:`_bucket` with the sentinel
+    tile id T (rows of no valid candidate). The band binning is None
     on the dense path, which bins nothing; otherwise tiles_dim is the
     (nti, ntj, ntk) grid of `tile_shape` tiles and the candidates come in
     the layout that the route reads (:func:`reads_csr`):
@@ -136,6 +144,7 @@ class Binned:
     active_ids: Optional[np.ndarray] = None
     cand: Optional[np.ndarray] = None
     cand_valid: Optional[np.ndarray] = None
+    sign: Optional[sign_ops.SignBinning] = None
 
 
 def _bucket(n: int, minimum: int = 64, shift: int = 4) -> int:
@@ -197,16 +206,17 @@ def ladder_schedule(config: SDFConfig, grid_shape):
 
 
 def check_supported(config: SDFConfig, num_tris: int) -> None:
-    """Raise ValueError for unknown modes and NotImplementedError for
-    ``sign_mode="device"``, the one mode not ported."""
+    """Raise ValueError for unknown modes and bad tile shapes."""
     if config.far_field not in ("exact", "propagate", "eikonal"):
         raise ValueError(f"unknown far_field mode: {config.far_field}")
-    if config.sign_mode != "host":
-        if config.sign_mode != "device":
-            raise ValueError(f"unknown sign_mode: {config.sign_mode}")
-        raise NotImplementedError("sign_mode='device' is not ported yet")
+    if config.sign_mode not in ("host", "device"):
+        raise ValueError(f"unknown sign_mode: {config.sign_mode}")
     if len(tuple(config.tile_shape)) != 3 or min(config.tile_shape) < 1:
         raise ValueError(f"bad tile_shape: {config.tile_shape}")
+    if config.sign_mode == "device" and (
+            len(tuple(config.tile2d_shape)) != 2
+            or min(config.tile2d_shape) < 1):
+        raise ValueError(f"bad tile2d_shape: {config.tile2d_shape}")
     del num_tris
 
 
@@ -230,20 +240,41 @@ def _host_parity_choose(mesh, grid, mode, min_cross_rows=0):
         mesh.verts, mesh.tris, grid), None
 
 
+def _sign_binning(mesh: Mesh, grid: GridSpec, config: SDFConfig):
+    """The device sign's 2D binning, its active ids padded by _bucket with
+    the sentinel tile id T (``sdfgenfast_tpu.pipeline.bin_mesh``)."""
+    sb = sign_ops.bin_triangles_2d(mesh.verts, mesh.tris, grid,
+                                   tuple(int(v) for v in config.tile2d_shape))
+    A = len(sb.active_ids)
+    A_pad = _bucket(A)
+    ids = np.pad(sb.active_ids, (0, A_pad - A),
+                 constant_values=int(np.prod(sb.tiles_dim)))
+    pad = ((0, A_pad - A), (0, 0))
+    return dataclasses.replace(sb, active_ids=ids, cand=np.pad(sb.cand, pad),
+                               cand_valid=np.pad(sb.cand_valid, pad))
+
+
 def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
              min_cross_rows: int = 0) -> Binned:
-    """Host-side preprocessing for :func:`make_level_set3` (host sign mode):
-    the x-ray parity, plus band binning on the binned path, in the layout
-    the route reads (``sdfgenfast_tpu.pipeline.bin_mesh``).
-    `min_cross_rows` pads the crossings transport's row count."""
+    """Host-side preprocessing for :func:`make_level_set3`: the x-ray
+    parity (host sign) or the 2D sign binning (device sign), plus band
+    binning on the binned path, in the layout the route reads
+    (``sdfgenfast_tpu.pipeline.bin_mesh``). In device sign mode the JAX
+    package bins the band on the dense path too, which reads none of it;
+    the port does not. `min_cross_rows` pads the crossings transport's row
+    count."""
     mesh.validate_indices()
     check_supported(config, len(mesh.tris))
-    packed, cross = _host_parity_choose(mesh, grid, config.parity_transport,
-                                        min_cross_rows)
+    packed = cross = sign = None
+    if config.sign_mode == "host":
+        packed, cross = _host_parity_choose(
+            mesh, grid, config.parity_transport, min_cross_rows)
+    else:
+        sign = _sign_binning(mesh, grid, config)
     tris = mesh.tris.astype(np.int32)
     if use_dense(config, len(mesh.tris)):
         return Binned(grid, config, tris, parity_packed=packed,
-                      parity_crossings=cross)
+                      parity_crossings=cross, sign=sign)
     # the exact far field: a >=3-cell seed band makes the 27-neighbourhood
     # union cover the true closest triangle for near-band cells; the
     # propagate/eikonal modes bin the band itself, unpruned (they rely on
@@ -262,7 +293,7 @@ def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
         return Binned(grid, config, tris, bb.tiles_dim, None, packed, cross,
                       seed_band, tile_shape, active_ids=ids,
                       cand=np.pad(bb.cand, pad),
-                      cand_valid=np.pad(bb.cand_valid, pad))
+                      cand_valid=np.pad(bb.cand_valid, pad), sign=sign)
     pair, off, cnt = band_kernel.band_csr_from_binning(
         bb.cand, bb.cand_valid, int(len(mesh.tris)))
     off = np.pad(off, (0, A_pad - len(off)))
@@ -273,24 +304,49 @@ def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
     kcap = max(-(-int(cnt.max() or 1) // 64) * 64, 64)
     csr = {"pair": pair, "off": off, "cnt": cnt, "kcap": kcap, "ids": ids}
     return Binned(grid, config, tris, bb.tiles_dim, csr, packed, cross,
-                  seed_band, tile_shape)
+                  seed_band, tile_shape, sign=sign)
 
 
 def binned_from_arrays(grid: GridSpec, config: SDFConfig, *, tris,
                        tiles_dim=None, pair=None, off=None, cnt=None, ids=None,
                        kcap=None, active_ids=None, cand=None, cand_valid=None,
                        tile_shape=(8, 8, 8), parity_packed=None,
-                       parity_crossings=None, seed_band: int = 3) -> Binned:
+                       parity_crossings=None, seed_band: int = 3,
+                       sign_ids=None, sign_cand=None, sign_valid=None,
+                       sign_f=None, tile2d_shape=None,
+                       tiles2d_dim=None) -> Binned:
     """Build the port's Binned from another binning's NumPy arrays (e.g. a
     ``sdfgenfast_tpu`` Binned: its ``band_csr`` entries, its padded
-    ``band.active_ids`` / ``band.cand`` / ``band.cand_valid`` and its
-    parity), so both packages can run from identical host state. A dense
-    Binned carries the triangles and the parity only: leave every band
-    array None. A binned one gives tiles_dim and the CSR (pair, off, cnt,
-    ids, kcap), the (A, K) matrices (active_ids, cand, cand_valid), or
-    both."""
-    if (parity_packed is None) == (parity_crossings is None):
-        raise ValueError("give exactly one of parity_packed / parity_crossings")
+    ``band.active_ids`` / ``band.cand`` / ``band.cand_valid``, and its
+    parity or its padded sign binning), so both packages can run from
+    identical host state. A dense Binned carries the triangles and the sign
+    only: leave every band array None. A binned one gives tiles_dim and the
+    CSR (pair, off, cnt, ids, kcap), the (A, K) matrices (active_ids, cand,
+    cand_valid), or both. The sign is one of parity_packed,
+    parity_crossings and the device sign's binning: sign_ids, sign_cand,
+    sign_valid (``sign.active_ids`` / ``cand`` / ``cand_valid``),
+    tile2d_shape, tiles2d_dim, and sign_f, the (M, 3, 3) float64 grid
+    coordinates (``ops.band.triangle_grid_coords``; the JAX package keeps
+    only their double-float split)."""
+    sign_arrays = (sign_ids, sign_cand, sign_valid, sign_f, tile2d_shape,
+                   tiles2d_dim)
+    if any(v is None for v in sign_arrays) and any(
+            v is not None for v in sign_arrays):
+        raise ValueError("give all of sign_ids, sign_cand, sign_valid, "
+                         "sign_f, tile2d_shape, tiles2d_dim or none")
+    if sum(v is not None for v in (parity_packed, parity_crossings,
+                                   sign_ids)) != 1:
+        raise ValueError("give exactly one of parity_packed / "
+                         "parity_crossings / the sign binning")
+    sign = None
+    if sign_ids is not None:
+        f = np.asarray(sign_f, np.float64)
+        sign = sign_ops.SignBinning(
+            tuple(int(v) for v in tile2d_shape),
+            tuple(int(v) for v in tiles2d_dim),
+            np.asarray(sign_ids, np.int32), np.asarray(sign_cand, np.int32),
+            np.asarray(sign_valid, bool), f,
+            sign_ops.triangle_windows(f, *grid.shape[1:]))
     csr_arrays = (pair, off, cnt, ids, kcap)
     mats = (active_ids, cand, cand_valid)
     if tiles_dim is None:
@@ -321,12 +377,14 @@ def binned_from_arrays(grid: GridSpec, config: SDFConfig, *, tris,
         int(seed_band), tuple(int(v) for v in tile_shape),
         None if active_ids is None else np.asarray(active_ids, np.int32),
         None if cand is None else np.asarray(cand, np.int32),
-        None if cand_valid is None else np.asarray(cand_valid, bool))
+        None if cand_valid is None else np.asarray(cand_valid, bool), sign)
 
 
 def _parity_device(parity_data, ni):
-    """Parity for either host transport: bit-packed uint8 or int16
-    crossing positions."""
+    """Parity for either host transport (bit-packed uint8 or int16
+    crossing positions), or a ready bool field (the device sign's)."""
+    if parity_data.dtype == torch.bool:
+        return parity_data
     if parity_data.dtype == torch.int16:
         return sign_host_ops.parity_from_crossings_device(parity_data, ni)
     return sign_host_ops.unpack_parity_device(parity_data, ni)
@@ -337,9 +395,10 @@ def dense_sign_core(verts, tris, parity_data, origin, dx: float, *,
     """The dense path on device tensors (``sdfgenfast_tpu.pipeline.
     _dense_sign_core``): vertex gather -> K1 -> sign from the parity.
 
-    verts (N, 3) f32, tris (M, 3) int32, parity_data (uint8 packed or int16
-    crossings), origin (3,) f32, all on one device; dx a float32-
-    representable float. Returns (signed phi, tid), each (ni, nj, nk)."""
+    verts (N, 3) f32, tris (M, 3) int32, parity_data (uint8 packed, int16
+    crossings or the bool field), origin (3,) f32, all on one device; dx a
+    float32-representable float. Returns (signed phi, tid), each
+    (ni, nj, nk)."""
     phi, tid = dense_ops.dense_distance_field(
         verts[tris.long()], origin, dx, grid_shape=grid_shape)
     parity = _parity_device(parity_data, grid_shape[0])
@@ -387,12 +446,12 @@ def exact_core(verts, tris, band, parity_data, origin, dx: float, *,
     """The binned exact pipeline on device tensors
     (``sdfgenfast_tpu.pipeline._exact_core``).
 
-    verts (N, 3) f32, tris (M, 3) int32, parity_data (uint8 packed or int16
-    crossings), origin (3,) f32 tensors, all on one device; dx a float32-
-    representable float. `band` holds the binning's int32/bool tensors in
-    the layout the route reads: at 8^3 tiles K2's CSR ("ids", "pair",
-    "off", "cnt"), at other tiles the tile evaluator's (A, K) matrices
-    ("active_ids", "cand", "cand_valid"). `ladder` is
+    verts (N, 3) f32, tris (M, 3) int32, parity_data (uint8 packed, int16
+    crossings or the bool field), origin (3,) f32 tensors, all on one
+    device; dx a float32-representable float. `band` holds the binning's
+    int32/bool tensors in the layout the route reads: at 8^3 tiles K2's
+    CSR ("ids", "pair", "off", "cnt"), at other tiles the tile evaluator's
+    (A, K) matrices ("active_ids", "cand", "cand_valid"). `ladder` is
     :func:`ladder_schedule`'s (strides, jacobi), or None for the pyramid.
     Returns (signed phi, tid), each (ni, nj, nk).
     """
@@ -501,7 +560,11 @@ def make_level_set3(mesh: Mesh, grid: GridSpec,
     so the gradient reaches `verts`. On the binned exact path this phi is
     the exact distance to each cell's triangle, tighter than the
     pyramid's. ``"propagate"`` always takes its phi from the recompute;
-    ``"eikonal"`` in the seeded band only, with or without `verts`."""
+    ``"eikonal"`` in the seeded band only, with or without `verts`.
+
+    With ``sign_mode="device"`` the parity is ``ops/sign.parity_field``
+    on `device`, from the binning's 2D sign tiles, computed once per call
+    and read by the route and the recompute alike."""
     if mesh.is_empty:
         raise ValueError(
             "Cannot generate SDF from empty mesh (vertices or triangles are empty)"
@@ -521,20 +584,41 @@ def make_level_set3(mesh: Mesh, grid: GridSpec,
         if tuple(v.shape) != tuple(mesh.verts.shape):
             raise ValueError(f"verts must have shape {mesh.verts.shape}, got "
                              f"{tuple(v.shape)}")
-    parity = dev(binned.parity_packed if binned.parity_packed is not None
-                 else binned.parity_crossings)
     tris = dev(binned.tris)
     dx = float(np.float32(grid.dx))
     origin = dev(np.asarray(grid.origin, np.float32))
+    dense = use_dense(config, len(mesh.tris))
+    band = None if dense else _band_tensors(binned, config, dev)
+    # every upload before the first launch: the device sign's work then
+    # queues behind nothing the host waits for
+    if config.sign_mode == "device":
+        sb = binned.sign
+        if sb is None:
+            raise ValueError("this Binned holds no sign binning (it was made "
+                             "for sign_mode='host'); bin the mesh with this "
+                             "config")
+        sign_arrays = [dev(a) for a in (sb.f, sb.window, sb.active_ids,
+                                        sb.cand, sb.cand_valid)]
+    elif binned.sign is not None:
+        raise ValueError("this Binned holds the device sign's binning, not "
+                         "the host parity; bin the mesh with this config")
+    else:
+        parity = dev(binned.parity_packed if binned.parity_packed is not None
+                     else binned.parity_crossings)
     far = None
     with torch.no_grad():
-        if use_dense(config, len(mesh.tris)):
+        if config.sign_mode == "device":
+            # computed once; the route and the recompute read this field
+            parity = sign_ops.parity_field(
+                *sign_arrays, sb.tile_shape, sb.tiles_dim, grid.shape,
+                chunk=config.sign_chunk)
+        if dense:
             phi, tid = dense_sign_core(v.detach(), tris, parity, origin, dx,
                                        grid_shape=grid.shape)
         elif config.far_field == "exact":
             phi, tid = exact_core(
-                v.detach(), tris, _band_tensors(binned, config, dev), parity,
-                origin, dx, grid_shape=grid.shape, tiles_dim=binned.tiles_dim,
+                v.detach(), tris, band, parity, origin, dx,
+                grid_shape=grid.shape, tiles_dim=binned.tiles_dim,
                 tile_shape=binned.tile_shape,
                 # the freeze threshold is capped by the band binned with
                 seed_band=min(max(config.exact_band, 3), binned.seed_band),
@@ -543,8 +627,8 @@ def make_level_set3(mesh: Mesh, grid: GridSpec,
                 band_chunk=config.band_chunk)
         else:
             tid, parity_b, far = sweep_core(
-                v.detach()[tris.long()], _band_tensors(binned, config, dev),
-                parity, origin, dx, mode=config.far_field,
+                v.detach()[tris.long()], band, parity, origin, dx,
+                mode=config.far_field,
                 grid_shape=grid.shape, tile_shape=binned.tile_shape,
                 tiles_dim=binned.tiles_dim, band_chunk=config.band_chunk,
                 max_passes=config.max_passes,

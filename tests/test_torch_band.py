@@ -198,7 +198,8 @@ def _per_candidate_coefs(tri9):
     cry = x13z * x23x - x13x * x23z
     crz = x13x * x23y - x13y * x23x
     cr2 = crx * crx + cry * cry + crz * crz
-    rn = torch.rsqrt(torch.clamp(cr2, min=1e-37))
+    root = sqrt_f32(torch.clamp(cr2, min=1e-37))
+    rn = torch.ones_like(root) / root
     n = [crx * rn, cry * rn, crz * rn]
     for col, f in ((0, n), (4, g23), (8, g31)):
         out.update({col: f[0], col + 1: f[1], col + 2: f[2],

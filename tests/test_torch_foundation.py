@@ -4,8 +4,8 @@ Grid sizing, .sdf bytes, host binning (band CSR + parity transports) and the
 torch device halves of the parity reconstruction must be EXACTLY the JAX
 package's: they are copies of framework-free code, so any difference is a
 porting bug. Also the import contract (no JAX, no nvcc needed), the
-NotImplementedError surface (``sign_mode="device"``) and the layout
-``bin_mesh`` builds for each ported route."""
+modes ``check_supported`` accepts and the layout ``bin_mesh`` builds for
+each route."""
 
 import os
 import subprocess
@@ -134,6 +134,32 @@ def test_import_needs_no_jax_and_no_nvcc():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
+def test_sources_import_no_jax():
+    """No module of the port, and not chip_smoke.py, imports JAX or the
+    JAX package, at any depth of the file (function-level imports too)."""
+    import ast
+
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT,
+                                                  "sdfgenfast_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in ("jax", "jaxlib",
+                                                 "sdfgenfast_tpu"), \
+                    f"{os.path.relpath(path, ROOT)} imports {mod}"
+
+
 def test_require_cuda_and_backend_resolution():
     assert P.is_gpu_available() == torch.cuda.is_available()
     with pytest.raises(ValueError):
@@ -153,9 +179,18 @@ def test_require_cuda_and_backend_resolution():
     (dict(sign_mode="device"), 1000),    # dense path, device sign
     (dict(dense_max_tris=0, sign_mode="device"), 2000),
 ])
-def test_unported_paths_raise(cfg, tris):
-    with pytest.raises(NotImplementedError):
-        ppipe.check_supported(P.SDFConfig(**cfg), tris)
+def test_device_sign_accepted(cfg, tris):
+    """check_supported accepts the device sign, and bin_mesh returns a
+    Binned with the 2D sign binning and no host parity."""
+    config = P.SDFConfig(**cfg)
+    ppipe.check_supported(config, tris)
+    mesh = P.icosphere(3, radius=1.0, center=(0.05, -0.02, 0.03))
+    grid = pgrid.sizing_mode2a_proportional(*mesh.bounds(), 24, 1)
+    b = ppipe.bin_mesh(mesh, grid, config)
+    assert isinstance(b, ppipe.Binned)
+    assert b.sign is not None and b.sign.tile_shape == config.tile2d_shape
+    assert b.parity_packed is None and b.parity_crossings is None
+    assert (b.band_csr is not None) == (not ppipe.use_dense(config, 1280))
 
 
 @pytest.mark.parametrize("cfg", [
