@@ -62,7 +62,18 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      the goldens' bars (and the box CLI golden in device mode); one
      ``train_step`` in each sign mode on box36 and sphere82k 256^3; the
      device parity's time beside the host parity's, each mode's wall split,
-     the parity's peak memory.
+     the parity's peak memory;
+  8. the sharded path (``parallel/sharded.py``) on ``["cuda:0"] * 4``, one
+     card running the four shards one after another: K2 with coordinate
+     ids, K3 at shard offsets (negative included), R1 and R1b at block
+     offsets against their twins; sphere82k at 256^3 on (2, 2) and (1, 4)
+     meshes and at 512^3 (against its golden), the capped ladder, the
+     device sign and box36 on a 256^3 grid (dense shards), each bit-equal
+     to its single-device run (phi and ids) with four times the launches
+     the schedule gives a shard; ``SDFGenerator(device_mesh=...)`` on
+     sphere82k and box36 (loss bit-equal, gradient within 1e-4, two runs
+     bit-equal); the sharded walls beside the single-device ones, the halo
+     exchange's device time and peak memory.
 
 Prints one JSON line of per-kernel results, then the card line, then, as the
 last line, ``{"ok": true, "device": {...}}``. Exits non-zero on any failure.
@@ -345,8 +356,8 @@ def check_k2(torch, device, mesh, grid):
     times = {
         "coefs": queued_ms(torch, lambda: band_kernel.band_coefs(tri9), 20),
         "walk": queued_ms(torch, lambda: band_kernel._launch_rows(
-            rows, coef, pair, ids, off, cnt, dx, binned.tiles_dim,
-            grid.shape), 20),
+            rows, coef, pair, ids, off, cnt, dx, binned.tiles_dim, ids,
+            binned.tiles_dim, grid.shape), 20),
         "fills": queued_ms(torch, lambda: band_kernel._filled_rows(
             T, upper, device), 20),
         "whole": queued_ms(torch, lambda: band_kernel.band_rows(*args, **kw),
@@ -2505,8 +2516,465 @@ def device_sign_times(torch, device, card, phase):
     return out
 
 
-def main():
+# -- 8. the sharded path (parallel/sharded.py) -------------------------------
+
+SHARD_SHAPES = ((2, 2), (1, 4))
+
+
+def zero_offset_times(reps=20, repeats=3):
+    """The kernels that gained an offset argument, at zero offset on the
+    main path's inputs (sphere82k 256^3), through entry points that older
+    versions of the package have too: the whole K2 call (``band_rows``:
+    fills, coefficient pass, walk), one K3 stride-1 round, R1 and R1b on
+    the step's ids, parity and d loss / d phi; queued behind a spin, (min,
+    median) of `repeats`. Prints the card and one JSON line; returns the
+    dict. To time another checkout's package (the parent), run from that
+    checkout's root: ``python3 -c "import runpy;
+    runpy.run_path('<this repo>/chip_smoke.py')['zero_offset_times']()"``."""
     import torch
+
+    from sdfgenfast_tpu_torch import load_mesh
+    from sdfgenfast_tpu_torch.grid import sizing_python_api
+    from sdfgenfast_tpu_torch.mesh import Mesh
+    from sdfgenfast_tpu_torch.ops import band_kernel, recompute, vdt_kernel
+    from sdfgenfast_tpu_torch.pipeline import bin_mesh, make_level_set3
+
+    device = torch.device("cuda", 0)
+    v, t, bounds = load_mesh(os.path.join(RESOURCES, "icosphere6.stl"))
+    mesh = Mesh(v, t)
+    grid = sizing_python_api(np.asarray(bounds[0], np.float32),
+                             np.asarray(bounds[1], np.float32), nx=254)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    binned = bin_mesh(mesh, grid)
+    csr = binned.band_csr
+    tv, tid, parity, origin, dx, upper = r1_step_inputs(torch, device, mesh,
+                                                        grid)
+    tri9 = (tv - dev(np.asarray(origin, np.float32))).reshape(-1, 9)
+    tri9 = tri9.contiguous()
+    args = (tri9, *(dev(csr[k]) for k in ("pair", "ids", "off", "cnt")), dx)
+    kw = dict(tiles_dim=binned.tiles_dim, grid_shape=grid.shape)
+    st = seeded_state(torch, grid.shape, dx, 3, device)
+    phi = recompute.recompute_forward(tv, tid, parity, origin, dx, upper)
+    target = make_level_set3(mesh, grid, binned=binned, device=device,
+                             verts=dev(mesh.verts) * 0.95)
+    gphi = (2 * (phi - target) / phi.numel()).contiguous()
+    out = {
+        "band_rows call": repeats_ms(torch, lambda: band_kernel.band_rows(
+            *args, **kw), reps, repeats),
+        "vdt_round stride 1": repeats_ms(torch, lambda: vdt_kernel.round_phase(
+            st, dx, (1,), 1), reps, repeats),
+        "recompute_phi": repeats_ms(torch, lambda: recompute.recompute_forward(
+            tv, tid, parity, origin, dx, upper), reps, repeats),
+        "recompute_vjp": repeats_ms(
+            torch, lambda: recompute.recompute_backward(
+                tv, tid, parity, gphi, origin, dx, upper), reps, repeats),
+    }
+    print(f"card: {card_line()}", flush=True)
+    print(json.dumps({"zero_offset_ms": out, "package": os.path.dirname(
+        band_kernel.__file__)}), flush=True)
+    return out
+
+
+def shard_counters():
+    from sdfgenfast_tpu_torch.ops import band_kernel, dense, recompute, vdt_kernel
+
+    return (band_kernel.band_coefs, band_kernel.band_rows,
+            vdt_kernel.round_phase, vdt_kernel.chamfer, dense.dense_stream,
+            recompute.recompute_forward, recompute.recompute_backward)
+
+
+def counted(fn):
+    """(fn(), {counter: launches}), every shard counter set to 0 just
+    before fn and read just after."""
+    counters = shard_counters()
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    return out, {c.__name__: c.launches for c in counters}
+
+
+def shard_schedule(config, grid_shape, dense, grad=False):
+    """The launches of ONE shard in a sharded call, derived from the
+    schedule: K1 1 (dense), or K2 1 + 1, K3 the coarsest ladder's strides
+    <= 8 (the others run in torch) plus every repair round of the descent
+    (pyramid) or one a rung (capped ladder), K4 one a chunk of passes; R1
+    and R1b 1 each with a vertex gradient."""
+    from sdfgenfast_tpu_torch.ops import vdt, vdt_kernel
+    from sdfgenfast_tpu_torch.pipeline import ladder_schedule
+
+    want = dict.fromkeys((c.__name__ for c in shard_counters()), 0)
+    if dense:
+        want["dense_stream"] = 1
+    else:
+        want["band_coefs"] = want["band_rows"] = 1
+        ladder = ladder_schedule(config, grid_shape)
+        if ladder is None:
+            lshapes = vdt.pyramid_level_shapes(grid_shape)
+            coarse = sum(1 for s in vdt.stride_ladder(max(lshapes[-1]),
+                                                      extra_rounds=1)
+                         if s <= 8)
+            repair = sum(len(vdt.PYRAMID_COARSE_ROUNDS) if lvl > 0
+                         else len(vdt.PYRAMID_LEVEL_ROUNDS) + 2
+                         for lvl in range(len(lshapes) - 1))
+            want["round_phase"] = coarse + repair
+        else:
+            want["round_phase"] = len(ladder[0])
+        want["chamfer"] = len(vdt_kernel.chamfer_chunks(config.chamfer_passes))
+    if grad:
+        want["recompute_forward"] = want["recompute_backward"] = 1
+    return want
+
+
+def split_blocks(x, dims, lead):
+    """The (Dj, Dk) grid of contiguous blocks of `x` cut along its axes
+    lead and lead + 1."""
+    Dj, Dk = dims
+    bj, bk = x.shape[lead] // Dj, x.shape[lead + 1] // Dk
+    return [[x.narrow(lead, a * bj, bj).narrow(lead + 1, b * bk, bk)
+             .contiguous() for b in range(Dk)] for a in range(Dj)]
+
+
+def box36_cube(n=256):
+    """box36 on an n^3 grid (blocks divide over both shard meshes): the box
+    centred, its longest side across n - 2 cells."""
+    from sdfgenfast_tpu_torch.grid import GridSpec
+    from sdfgenfast_tpu_torch.testing import box36
+
+    box = box36()
+    mn, mx = (np.asarray(b, np.float64) for b in box.bounds())
+    dx = float(np.float32((mx - mn).max() / (n - 2)))
+    origin = tuple(float(v) for v in (mn + mx) / 2 - dx * n / 2)
+    return box, GridSpec(origin, dx, (n, n, n))
+
+
+def check_offset_kernels(torch, device, mesh, grid):
+    """K2, K3, R1 and R1b at the offsets the shards give them, on the card.
+    K2: every shard of a (2, 2) binning of `mesh` (coordinate ids, global
+    upper) bit-equal to its twin with the same ids and to the global grid's
+    rows at those tiles. K3: every block of a seeded 64 x 128 x 128 state on
+    (2, 2) and (1, 4) meshes, halo-extended (offsets j0 - s and k0 - s,
+    negative on the first row and column), scales 1 and 2, strides 1-8:
+    bit-equal to its twin on the extended block and, inside, to the round
+    over the whole state. R1 at each (2, 2) block's offset: bit-equal to
+    its twin and to the global R1's block. R1b at each offset, on the train
+    step's d loss / d phi: within 1e-4 of its twin's largest vertex
+    gradient, two runs bit-equal. Returns the
+    largest error of each."""
+    from sdfgenfast_tpu_torch.ops import band_kernel, recompute as rc, vdt_kernel
+    from sdfgenfast_tpu_torch.parallel import sharded as sh
+    from sdfgenfast_tpu_torch.pipeline import _parity_device, bin_mesh, make_level_set3
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    dx = float(np.float32(grid.dx))
+    origin = tuple(float(v) for v in np.asarray(grid.origin, np.float32))
+    binned = bin_mesh(mesh, grid)
+    tv = dev(mesh.verts)[dev(binned.tris).long()]
+    tri9 = (tv - dev(np.asarray(origin, np.float32))).reshape(-1, 9).contiguous()
+    g = binned.band_csr
+    glob = band_kernel.band_rows(
+        tri9, *(dev(g[k]) for k in ("pair", "ids", "off", "cnt")), dx,
+        tiles_dim=binned.tiles_dim, grid_shape=grid.shape)
+    sb = sh.bin_mesh_sharded(mesh, grid, (2, 2))
+    T = int(np.prod(sb.band_tiles_local))
+    k2_words = k2_tiles = 0
+    for dj, dk in np.ndindex(2, 2):
+        args = (tri9, dev(sb.csr_pair[dj, dk]), dev(sb.band_ids[dj, dk]),
+                dev(sb.csr_off[dj, dk]), dev(sb.csr_cnt[dj, dk]), dx)
+        kw = dict(tiles_dim=sb.band_tiles_local, grid_shape=sb.block,
+                  coord_ids=dev(sb.band_gids[dj, dk]),
+                  coord_tiles_dim=sb.band_tiles_global,
+                  coord_grid_shape=grid.shape)
+        got = band_kernel.band_rows(*args, **kw)
+        want = band_kernel.band_rows_reference(*args, **kw)
+        keep = sb.band_ids[dj, dk] < T
+        live = dev(sb.band_ids[dj, dk][keep]).long()
+        gl = dev(sb.band_gids[dj, dk][keep]).long()
+        for x, y, z in zip(got, want, glob):
+            k2_words += int((bits(torch, x[:T]) != bits(torch, y[:T])).sum())
+            k2_words += int((bits(torch, x[live]) != bits(torch, z[gl])).sum())
+        k2_tiles += len(live)
+    torch.cuda.synchronize()
+    if k2_words:
+        raise AssertionError(f"K2 with coordinate ids: {k2_words} words "
+                             "differ from its twin or the global rows")
+    print(f"K2 with coordinate ids on the (2, 2) shards of {grid.shape}: "
+          f"{k2_tiles} active tiles, every row word bit-equal to the twin's "
+          f"and to the global rows", flush=True)
+
+    st = seeded_state(torch, (64, 128, 128), dx, 12, device)
+    k3_rounds = negative = 0
+    for dims in ((2, 2), (1, 4)):
+        blocks = split_blocks(st, dims, 2)
+        bj, bk = 128 // dims[0], 128 // dims[1]
+        for scale in (1, 2):
+            for s in (1, 2, 3, 4, 8):
+                full = vdt_kernel.round_phase(st, dx, (s,), scale)
+                ext = sh._state_halo_extend(blocks, s)
+                for a, b in np.ndindex(*dims):
+                    off = (0, a * bj - s, b * bk - s)
+                    got = vdt_kernel.round_phase(ext[a][b], dx, (s,), scale,
+                                                 pos_offset=off)
+                    want = vdt_kernel.round_phase_reference(
+                        ext[a][b], dx, (s,), scale, pos_offset=off)
+                    inner = full[:, :, a * bj:(a + 1) * bj,
+                                 b * bk:(b + 1) * bk]
+                    if not (torch.equal(bits(torch, got), bits(torch, want))
+                            and torch.equal(bits(torch, got[:, :, s:-s, s:-s]),
+                                            bits(torch, inner))):
+                        raise AssertionError(
+                            f"K3 at offset {off} (mesh {dims}, scale "
+                            f"{scale}, stride {s}) differs")
+                    k3_rounds += 1
+                    negative += min(off) < 0
+    print(f"K3 at shard offsets: {k3_rounds} rounds ({negative} with a "
+          f"negative offset) bit-equal to the twin on the extended block "
+          f"and, inside, to the round over the whole state", flush=True)
+
+    phi1, tid1 = make_level_set3(mesh, grid, binned=binned, device=device,
+                                 return_tid=True)
+    parity = _parity_device(dev(binned.parity_packed
+                                if binned.parity_packed is not None
+                                else binned.parity_crossings), grid.shape[0])
+    upper = float(np.float32(sum(grid.shape)) * np.float32(dx))
+    full = rc.recompute_forward(tv, tid1, parity, origin, dx, upper)
+    # R1b's input on the main path: the train step's d loss / d phi, its
+    # target the field of the 0.95-scaled vertices
+    target = make_level_set3(mesh, grid, binned=binned, device=device,
+                             verts=dev(mesh.verts) * 0.95)
+    gphi_b = split_blocks(2 * (full - target) / full.numel(), (2, 2), 1)
+    r1b_err = 0.0
+    tris = dev(mesh.tris.astype(np.int64))
+    tid_b, par_b = split_blocks(tid1, (2, 2), 1), split_blocks(parity, (2, 2), 1)
+    full_b = split_blocks(full, (2, 2), 1)
+    bj, bk = grid.shape[1] // 2, grid.shape[2] // 2
+    for a, b in np.ndindex(2, 2):
+        off = (0, a * bj, b * bk)
+        args = (tv, tid_b[a][b], par_b[a][b])
+        got = rc.recompute_forward(*args, origin, dx, upper, ijk_offset=off)
+        want = rc.recompute_forward_reference(*args, origin, dx, upper,
+                                              ijk_offset=off)
+        if not (torch.equal(bits(torch, got), bits(torch, want))
+                and torch.equal(bits(torch, got), bits(torch, full_b[a][b]))):
+            raise AssertionError(f"R1 at offset {off} differs")
+        bargs = (*args, gphi_b[a][b], origin, dx, upper)
+        g1 = rc.recompute_backward(*bargs, ijk_offset=off)
+        g2 = rc.recompute_backward(*bargs, ijk_offset=off)
+        gt = rc.recompute_backward_reference(*bargs, ijk_offset=off)
+        if not torch.equal(bits(torch, g1), bits(torch, g2)):
+            raise AssertionError(f"R1b at offset {off}: two runs differ")
+        gv, gvt = (vertex_grad(torch, tris, x, len(mesh.verts))
+                   for x in (g1, gt))
+        scale = float(gvt.abs().max())
+        err = float((gv - gvt).abs().max())
+        if not (scale > 0 and err <= 1e-4 * scale):
+            raise AssertionError(f"R1b at offset {off}: max err {err:.3e} "
+                                 f"vs 1e-4 * {scale:.3e}")
+        r1b_err = max(r1b_err, err / scale)
+    torch.cuda.synchronize()
+    print(f"R1 at the (2, 2) shard offsets of {grid.shape}: bit-equal to its "
+          f"twin and to the global R1's blocks; R1b there within "
+          f"{r1b_err:.2e} of its twin's largest vertex gradient, two runs "
+          f"bit-equal", flush=True)
+    return {"band_rows": 0.0, "vdt_round": 0.0, "recompute_phi": 0.0,
+            "recompute_vjp": r1b_err}
+
+
+def sharded_cases(grids, cases, box, box_grid):
+    """(label, mesh, grid, knobs, mesh shapes, golden) of each sharded case:
+    sphere82k at 256^3 (both meshes) and 512^3 (the full-width run, against
+    its golden), the capped ladder and the device sign at 256^3, box36 on a
+    256^3 grid (dense shards, K1 at offsets)."""
+    return (
+        ("sphere82k 256^3", *grids[256], {}, SHARD_SHAPES, cases[256]),
+        ("sphere82k 512^3", *grids[512], {}, ((2, 2),), cases[512]),
+        ("capped hop 8, sphere82k 256^3", *grids[256], {"vdt_max_hop": 8},
+         ((2, 2),), None),
+        ("device sign, sphere82k 256^3", *grids[256],
+         {"sign_mode": "device"}, ((2, 2),), None),
+        ("box36 256^3", box, box_grid, {}, SHARD_SHAPES, None),
+    )
+
+
+def sharded_phase(torch, device, grids, cases, box, box_grid):
+    """Every sharded case through ``parallel.sharded_sdf`` on
+    ``["cuda:0"] * 4``: phi and ids bit-equal to the single-device card run
+    (``make_level_set3``), each counter at 4 x the schedule's count for a
+    shard (``shard_schedule``), the 512^3 run within its golden's bars.
+    Returns {label: {mesh shape: launches}}."""
+    from sdfgenfast_tpu_torch.parallel import (bin_mesh_sharded,
+                                               make_device_mesh, sharded_sdf)
+    from sdfgenfast_tpu_torch.pipeline import SDFConfig, make_level_set3, use_dense
+
+    meshes = {s: make_device_mesh([device] * 4, s) for s in SHARD_SHAPES}
+    out = {}
+    for label, mesh, grid, knobs, shapes, golden in sharded_cases(
+            grids, cases, box, box_grid):
+        cfg = SDFConfig(**knobs)
+        want_phi, want_tid = make_level_set3(mesh, grid, cfg, device=device,
+                                             return_tid=True)
+        per_shard = shard_schedule(cfg, grid.shape,
+                                   use_dense(cfg, len(mesh.tris)))
+        for shape in shapes:
+            sb = bin_mesh_sharded(mesh, grid, shape, cfg)
+            (phi, tid), launches = counted(lambda: sharded_sdf(
+                sb, meshes[shape], verts=mesh.verts, return_tid=True))
+            torch.cuda.synchronize()
+            bad = (int((bits(torch, phi) != bits(torch, want_phi)).sum()),
+                   int((tid != want_tid).sum()))
+            if bad != (0, 0):
+                raise AssertionError(f"sharded {label} on {shape}: {bad[0]} "
+                                     f"phi and {bad[1]} id cells differ from "
+                                     "the single-device run")
+            want = {k: 4 * v for k, v in per_shard.items()}
+            if launches != want:
+                raise AssertionError(f"sharded {label} on {shape}: launches "
+                                     f"{launches}, the schedule gives {want}")
+            far = ""
+            if golden is not None:
+                mesh_name, gold, far_key, stride = golden
+                far = check_golden(phi.cpu().numpy(),
+                                   os.path.join(GOLDENS, gold), far_key,
+                                   stride, grid)
+                far = f"; golden bars met, far field {far:.4f} dx"
+            out.setdefault(label, {})[f"{shape[0]}x{shape[1]}"] = launches
+            print(f"sharded {label} on {shape} x cuda:0: phi and ids "
+                  f"bit-equal to the single-device run; launches a shard "
+                  f"{per_shard} (x 4 = counted){far}", flush=True)
+    return out
+
+
+def sharded_steps(torch, device, grids, box, box_grid):
+    """``SDFGenerator(device_mesh=...)`` against ``SDFGenerator(device=...)``
+    on sphere82k 256^3 and box36 256^3 ((2, 2) mesh): the loss bit-equal,
+    the vertex gradient within 1e-4 of its largest component, two sharded
+    gradients bit-equal, the launches 4 x the schedule's for a shard, and
+    one ``train_step`` through the entry point equal to verts - lr * g."""
+    from sdfgenfast_tpu_torch.models import SDFGenerator
+    from sdfgenfast_tpu_torch.parallel import make_device_mesh
+    from sdfgenfast_tpu_torch.pipeline import SDFConfig, use_dense
+
+    dm = make_device_mesh([device] * 4, (2, 2))
+    out = {}
+    for label, mesh, grid in (("sphere82k 256^3", *grids[256]),
+                              ("box36 256^3", box, box_grid)):
+        single = SDFGenerator(mesh, grid, device=device)
+        shard = SDFGenerator(mesh, grid, device_mesh=dm)
+        target = single.forward(single.params * 0.95).detach()
+
+        def grad(model):
+            v = model.params.requires_grad_(True)
+            loss = model.loss(v, target)
+            return loss.detach(), torch.autograd.grad(loss, v)[0]
+
+        l1, g1 = grad(single)
+        (ls, gs), launches = counted(lambda: grad(shard))
+        _, gs2 = grad(shard)
+        torch.cuda.synchronize()
+        if not torch.equal(bits(torch, gs), bits(torch, gs2)):
+            raise AssertionError(f"sharded step {label}: two gradients differ")
+        if not torch.equal(bits(torch, ls), bits(torch, l1)):
+            raise AssertionError(f"sharded step {label}: loss {float(ls)} != "
+                                 f"{float(l1)}")
+        scale = float(g1.abs().max())
+        err = float((gs - g1).abs().max())
+        if not (scale > 0 and err <= 1e-4 * scale):
+            raise AssertionError(f"sharded step {label}: gradient max err "
+                                 f"{err:.3e} vs 1e-4 * {scale:.3e}")
+        want = {k: 4 * v for k, v in shard_schedule(
+            SDFConfig(), grid.shape, use_dense(SDFConfig(), len(mesh.tris)),
+            grad=True).items()}
+        if launches != want:
+            raise AssertionError(f"sharded step {label}: launches {launches},"
+                                 f" the schedule gives {want}")
+        lr = 1e-2
+        new, _ = shard.train_step(shard.params, target, lr=lr)
+        if not torch.equal(bits(torch, new),
+                           bits(torch, shard.params - np.float32(lr) * gs)):
+            raise AssertionError(f"sharded train_step {label}: verts - lr * g "
+                                 "differs")
+        out[label] = {"launches": launches, "grad_err": err / scale}
+        print(f"sharded SDFGenerator {label} on (2, 2) x cuda:0: loss "
+              f"{float(ls):.6e} bit-equal to the single device's, gradient "
+              f"within {err / scale:.2e} of max|g| = {scale:.3e}, two runs "
+              f"bit-equal, launches {launches}; train_step = verts - lr g",
+              flush=True)
+    return out
+
+
+def sharded_times(torch, device, card, grids, box, box_grid):
+    """Wall per call of ``generate_sdf_batch`` (one mesh: host binning,
+    device, copy back) with ``device_mesh`` ((2, 2) x cuda:0) against the
+    single device, median of 3 warm calls; the halo exchange's device time
+    in one sharded call (CUDA events around every ``sharded._extend``);
+    peak device memory of one call each. One card runs the four shards one
+    after another: no speed-up is possible or claimed."""
+    from sdfgenfast_tpu_torch import generate_sdf_batch
+    from sdfgenfast_tpu_torch.parallel import (bin_mesh_sharded,
+                                               make_device_mesh, sharded_sdf)
+    from sdfgenfast_tpu_torch.parallel import sharded as sh
+    from sdfgenfast_tpu_torch.pipeline import bin_mesh, make_level_set3
+
+    dm = make_device_mesh([device] * 4, (2, 2))
+    out = {}
+    for label, mesh, grid in (("sphere82k 256^3", *grids[256]),
+                              ("sphere82k 512^3", *grids[512]),
+                              ("box36 256^3", box, box_grid)):
+        args = ([(mesh.verts, mesh.tris)], grid.origin, grid.dx, *grid.shape)
+        walls = {}
+        for name, kw in (("single", {"device": device}),
+                         ("sharded", {"device_mesh": dm})):
+            generate_sdf_batch(*args, **kw)
+            t = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                generate_sdf_batch(*args, **kw)
+                t.append(time.perf_counter() - t0)
+            walls[name] = statistics.median(t) * 1e3
+        sb = bin_mesh_sharded(mesh, grid, (2, 2))
+        binned = bin_mesh(mesh, grid)
+        events = []
+        extend = sh._extend
+
+        def timed(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            r = extend(*a, **k)
+            end.record()
+            events.append((start, end))
+            return r
+
+        sh._extend = timed
+        try:
+            sharded_sdf(sb, dm, verts=mesh.verts)
+            torch.cuda.synchronize()
+        finally:
+            sh._extend = extend
+        halo_ms = sum(s.elapsed_time(e) for s, e in events)
+        peaks = {}
+        for name, fn in (("single", lambda: make_level_set3(
+                mesh, grid, binned=binned, device=device)),
+                         ("sharded", lambda: sharded_sdf(sb, dm,
+                                                         verts=mesh.verts))):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        out[label] = dict(walls_ms=walls, halo_ms=halo_ms,
+                          halo_calls=len(events), peak_gib=peaks)
+        print(f"[{card}] sharded {label}, (2, 2) x cuda:0: generate_sdf_batch "
+              f"wall {walls['sharded']:.1f} ms against {walls['single']:.1f} "
+              f"ms on one device (median of 3; the shards run one after "
+              f"another); halo exchange {halo_ms:.3f} ms over {len(events)} "
+              f"extends in one call; peak memory {peaks['sharded']:.2f} GiB "
+              f"against {peaks['single']:.2f} GiB", flush=True)
+    return out
 
 
 def main():
@@ -2705,16 +3173,17 @@ def main():
                   f"operations per cell: {OPS_R1B_CELL} + {OPS_R1B_PLANE} "
                   f"(plane case) or {OPS_R1B_EDGES} + {OPS_R1B_SEG} per "
                   f"segment (outside)", flush=True)
-        # the fixed-order side (kRows = true) holds no atomic instruction;
-        # the atomic side does
+        # the fixed-order side (kRows, the second template argument, true)
+        # holds no atomic instruction; the atomic side does
         for name, (ins, _) in sorted(sass_functions(sass).items()):
-            if not name.startswith("recompute_vjp_kernel"):
+            rows = re.match(r"recompute_vjp_kernel<[^,]+, (true|false)", name)
+            if rows is None:
                 continue
             atomics = sum(bool(re.search(r"\b(RED|REDG|ATOM|ATOMG)\.", op))
                           for _, op in ins)
             print(f"  SASS {name}: {atomics} global atomic instructions",
                   flush=True)
-            if (atomics > 0) != name.endswith("false>"):
+            if (atomics > 0) != (rows.group(1) == "false"):
                 ops = sorted({op.split()[0] for _, op in ins
                               if not op.startswith("@")})
                 raise AssertionError(f"{name}: {atomics} global atomic "
@@ -2897,6 +3366,19 @@ def main():
     sign_steps = device_sign_steps(torch, device, grids, box, box_grid)
     torch.cuda.empty_cache()
     device_sign_times(torch, device, card, sign_phase)
+
+    # -- 8. the sharded path ---------------------------------------------------
+    # parallel/sharded.py on ["cuda:0"] * 4: the changed kernels at the
+    # shards' offsets, every case bit-equal to its single-device run with
+    # the launches its schedule gives, the sharded train_step, the walls
+    torch.cuda.empty_cache()
+    _, cube = box36_cube()
+    offset_err = check_offset_kernels(torch, device, *grids[256])
+    shard_launches = sharded_phase(torch, device, grids, cases, box, cube)
+    torch.cuda.empty_cache()
+    shard_steps = sharded_steps(torch, device, grids, box, cube)
+    torch.cuda.empty_cache()
+    sharded_times(torch, device, card, grids, box, cube)
 
     # the bounds at the shapes timed (see bound_ms)
     n_box, n_torus = int(np.prod(box_grid.shape)), int(np.prod(torus_grid.shape))
@@ -3106,10 +3588,22 @@ def main():
     by_route = {"band_coefs": "band_coefs", "band_rows": "band_rows",
                 "vdt_round": "round_phase", "chamfer": "chamfer",
                 "recompute_phi": "recompute_forward"}
-    # and each device-sign case's (phase 7; the steps': R1 and R1b)
+    # and each device-sign case's (phase 7; the steps': R1 and R1b), and
+    # each sharded case's, over its four shards (phase 8)
     by_sign = dict(by_route, dense_stream="dense_stream",
                    recompute_vjp="recompute_backward")
     for row in kernels:
+        if row["name"] in by_sign:
+            key = by_sign[row["name"]]
+            row["launches_sharded"] = {
+                f"{label} {shape}": n[key]
+                for label, d in shard_launches.items()
+                for shape, n in d.items()}
+            row["launches_sharded"].update({
+                f"step {label} 2x2": r["launches"][key]
+                for label, r in shard_steps.items()})
+        if row["name"] in offset_err:
+            row["max_abs_err_offsets"] = offset_err[row["name"]]
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]
         row.setdefault("library_ms", None)
         if row["name"] in by_route:

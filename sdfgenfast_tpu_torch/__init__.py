@@ -17,7 +17,10 @@ generate_sdf, save_sdf, load_sdf, is_gpu_available, generate_from_mesh,
 generate_from_file``, plus ``generate_sdf_batch``, the differentiable
 pipeline (``pipeline.make_level_set3(..., verts=...)``, vertex gradients
 through the recompute kernels R1/R1b), the trainable generator
-``models.SDFGenerator`` and the CLI (``python -m sdfgenfast_tpu_torch.cli``,
+``models.SDFGenerator``, the sharded pipeline over a (j, k) mesh of
+devices (``parallel``: ``make_device_mesh``, ``bin_mesh_sharded``,
+``sharded_sdf``; ``generate_sdf_batch(device_mesh=...)`` and
+``SDFGenerator(device_mesh=...)``) and the CLI (``python -m sdfgenfast_tpu_torch.cli``,
 the ``sdfgen-torch`` script). ``tools.micro_bench`` probes the card's
 ceilings (kernels P1-P4).
 """

@@ -14,7 +14,9 @@ capped or flat jump-flood ladder, ``tile_shape``, ``chamfer_passes``, ...);
 ``exact_band`` and ``far_field`` always come from their own arguments.
 
 ``generate_sdf_batch`` runs many meshes on one grid, binning mesh k+1 on the
-host while mesh k's kernels run on the card.
+host while mesh k's kernels run on the card; with a ``device_mesh``
+(``parallel.make_device_mesh``) each mesh's grid is sharded over its
+devices (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from .grid import GridSpec, sizing_python_api
 from .io import mesh_io as _mesh_io
 from .io import sdf_io as _sdf_io
 from .mesh import Mesh
+from .parallel.sharded import (bin_mesh_sharded, check_device_mesh,
+                               sharded_sdf)
 from .pipeline import SDFConfig, bin_mesh, make_level_set3
 from .platform import is_cuda_available, resolve_device
 
@@ -156,17 +160,22 @@ def generate_sdf_batch(
     is launched without a host sync), then mesh k is copied back. With
     ``far_field="propagate"`` the plane scans end every pass in a host sync,
     so mesh k's device work is done before mesh k+1 is binned: no overlap.
-    `device_mesh` (multi-GPU sharding) is not ported and raises
-    NotImplementedError.
+
+    `device_mesh` (a ``parallel.DeviceMesh``) shards every grid over its
+    devices in ``"exact"`` mode (``parallel.sharded_sdf``), with the same
+    one-deep overlap: mesh k+1 is binned while mesh k's shards run. Its
+    devices take the place of `device`: CUDA devices for ``"auto"`` and
+    ``"gpu"``, CPU devices for ``"cpu"``.
     """
     if nx <= 0 or ny <= 0 or nz <= 0:
         raise ValueError("Grid dimensions must be positive (nx, ny, nz > 0)")
     if not (float(dx) > 0.0):
         raise ValueError("Cell spacing dx must be positive")
-    if device_mesh is not None:
-        raise NotImplementedError(
-            "device_mesh (sharding over several GPUs) is not ported yet")
-    dev = resolve_device(backend, device)
+    if device_mesh is None:
+        dev = resolve_device(backend, device)
+    else:
+        check_device_mesh(device_mesh)
+        _check_mesh_devices(backend, device, device_mesh)
     grid = GridSpec(tuple(float(v) for v in origin), float(dx),
                     (int(nx), int(ny), int(nz)))
     config = _config(config, exact_band, far_field)
@@ -180,6 +189,8 @@ def generate_sdf_batch(
                 "(vertices or triangles are empty)")
         validated.append(Mesh(v, t))
 
+    if device_mesh is not None:
+        return _sharded_batch(validated, grid, config, device_mesh)
     out = []
     pending = None  # device result of the previous mesh, maybe still running
     for mesh in validated:
@@ -189,6 +200,48 @@ def generate_sdf_batch(
         pending = make_level_set3(mesh, grid, config, binned, device=dev)
     if pending is not None:
         out.append(pending.cpu().numpy())
+    return out
+
+
+def _check_mesh_devices(backend: str, device: Device, device_mesh) -> None:
+    """A device mesh names its devices: `device` must be None, and the
+    devices must be CPU ones for backend "cpu", CUDA ones otherwise."""
+    devices = device_mesh.devices.flat
+    kinds = {d.type for d in devices}
+    if device is not None:
+        raise ValueError("give device or device_mesh, not both")
+    resolve_device(backend, "cpu" if backend == "cpu" else None)
+    want = "cpu" if backend == "cpu" else "cuda"
+    if kinds != {want}:
+        raise ValueError(f"backend={backend!r} needs {want} devices in the "
+                         f"device mesh, got {sorted(kinds)}")
+
+
+def _sharded_batch(validated, grid: GridSpec, config: SDFConfig,
+                   device_mesh):
+    """The batch over a device mesh (``sdfgenfast_tpu.api._sharded_batch``
+    in one process): each mesh's host binning overlaps the previous mesh's
+    shards on the devices, whose blocks are then copied back into one
+    (ni, nj, nk) array."""
+    dims = tuple(device_mesh.devices.shape)
+
+    def launch(mesh):
+        sb = bin_mesh_sharded(mesh, grid, dims, config)
+        return sharded_sdf(sb, device_mesh, verts=mesh.verts, assemble=False)
+
+    def collect(blocks):
+        return np.concatenate([np.concatenate(
+            [b.cpu().numpy() for b in row], axis=2) for row in blocks], axis=1)
+
+    out = []
+    pending = None
+    for mesh in validated:
+        launched = launch(mesh)  # bin mesh k+1 while mesh k computes
+        if pending is not None:
+            out.append(collect(pending))
+        pending = launched
+    if pending is not None:
+        out.append(collect(pending))
     return out
 
 

@@ -9,7 +9,11 @@
 // d2 ties, as in the Pallas chunk reduction. Per cell the kernel writes phi
 // (or `upper` when no candidate is below upper^2), the winner's triangle id
 // (-1 for none) and the closest point p - dd (FAR for none) into row ids[a]
-// of five (T+1, 512) row arrays.
+// of five (T+1, 512) row arrays. Slots with ids[a] >= T (padding) are
+// skipped. Cell positions come from the coordinate id cids[a] on a
+// (., ctj, ctk) tile grid and `upper` from dims_sum: the row's own tile and
+// grid on one device; on a shard's block the global tile id and the global
+// grid, so that every cell equals the single-device run's.
 //
 // Two launches:
 // - band_coefs_kernel, one thread per triangle, builds the 40 affine
@@ -263,8 +267,9 @@ __device__ __forceinline__ void stage_chunk(float4* dst, int* dst_id,
 __global__ void __launch_bounds__(kThreads)
 band_rows_kernel(const float4* __restrict__ coef, int num_tris,
                  const int* __restrict__ pair, const int* __restrict__ ids,
-                 const int* __restrict__ off, const int* __restrict__ cnt,
-                 int ntj, int ntk, int dims_sum, float dx,
+                 const int* __restrict__ cids, const int* __restrict__ off,
+                 const int* __restrict__ cnt, int num_tiles, int ctj, int ctk,
+                 int dims_sum, float dx,
                  float* __restrict__ phi, int* __restrict__ tid,
                  float* __restrict__ cpx, float* __restrict__ cpy,
                  float* __restrict__ cpz) {
@@ -274,9 +279,11 @@ band_rows_kernel(const float4* __restrict__ coef, int num_tris,
   const int a = blockIdx.x;
   const int r = threadIdx.x;  // the tile's (i, j) row: i = r / 8, j = r % 8
   const int t = ids[a];
-  const int tk = t % ntk;
-  const int tj = (t / ntk) % ntj;
-  const int ti = t / (ntk * ntj);
+  if (t >= num_tiles) return;  // a padded slot
+  const int g = cids[a];
+  const int tk = g % ctk;
+  const int tj = (g / ctk) % ctj;
+  const int ti = g / (ctk * ctj);
   const float x = (float)(ti * 8 + r / 8) * dx;
   const float y = (float)(tj * 8 + r % 8) * dx;
   float z[kCells], best[kCells];
@@ -391,14 +398,15 @@ extern "C" int sdf_band_coefs(const float* tri9, int m, float* coef,
 }
 
 extern "C" int sdf_band_rows(const float* coef, int num_tris, const int* pair,
-                             const int* ids, const int* off, const int* cnt,
-                             int num_active, int ntj, int ntk, int dims_sum,
-                             float dx, float* phi, int* tid, float* cpx,
-                             float* cpy, float* cpz, void* stream) {
+                             const int* ids, const int* cids, const int* off,
+                             const int* cnt, int num_active, int num_tiles,
+                             int ctj, int ctk, int dims_sum, float dx,
+                             float* phi, int* tid, float* cpx, float* cpy,
+                             float* cpz, void* stream) {
   if (num_active > 0) {
     band_rows_kernel<<<num_active, kThreads, 0, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(coef), num_tris, pair, ids, off, cnt,
-        ntj, ntk, dims_sum, dx, phi, tid, cpx, cpy, cpz);
+        reinterpret_cast<const float4*>(coef), num_tris, pair, ids, cids, off,
+        cnt, num_tiles, ctj, ctk, dims_sum, dx, phi, tid, cpx, cpy, cpz);
   }
   return (int)cudaGetLastError();
 }

@@ -278,15 +278,17 @@ recompute_terms_kernel(const float* __restrict__ tri, int m,
 }
 
 // phi of one cell (i, j, k) with id t, parity par and triangle terms tr
+// (local; `off` is the block's global index of cell (0, 0, 0))
 template <typename Tri>
 __device__ __forceinline__ float cell_phi(int t, unsigned char par, int i,
                                           int j, int k, const Tri& tr,
-                                          float ox, float oy, float oz,
-                                          float dx, float upper) {
+                                          int3 off, float ox, float oy,
+                                          float oz, float dx, float upper) {
   float d = upper;
   if (t >= 0) {
-    const float d2 = cell_d2((float)i * dx + ox, (float)j * dx + oy,
-                             (float)k * dx + oz, tr);
+    const float d2 = cell_d2((float)(i + off.x) * dx + ox,
+                             (float)(j + off.y) * dx + oy,
+                             (float)(k + off.z) * dx + oz, tr);
     d = sqrtf(fmaxf(d2, 1e-30f));
   }
   return par ? -d : d;
@@ -340,15 +342,16 @@ __device__ __forceinline__ void next_cell(int& i, int& j, int& k, int nj,
 // the thread's first cell comes from one division; then it steps one cell
 // within a chunk and walks kVec G cells between chunks as mixed-radix
 // digits, without dividing.
-template <typename Index, int kForm, int kVec>
+template <typename Index, int kForm, int kVec, bool kShift>
 __global__ void __launch_bounds__(kThreads)
 recompute_phi_kernel(const float* __restrict__ tri,
                      const float4* __restrict__ table,
                      const int* __restrict__ tid,
                      const unsigned char* __restrict__ parity, Index n,
-                     int nj, int nk, float ox, float oy, float oz, float dx,
-                     float upper, int m, float* __restrict__ phi) {
+                     int nj, int nk, int3 shift, float ox, float oy, float oz,
+                     float dx, float upper, int m, float* __restrict__ phi) {
   static_assert(kVec == 1 || kVec == 4, "one or four cells a chunk");
+  const int3 off = kShift ? shift : make_int3(0, 0, 0);
   extern __shared__ float4 stab[];
   if (kForm == kShared) {
     for (int e = threadIdx.x; e < m * kQuads; e += kThreads)
@@ -365,7 +368,7 @@ recompute_phi_kernel(const float* __restrict__ tri,
     digits(c, plane, nk, i, j, k);
     const int t = tid[c];
     phi[c] = cell_phi(t, parity[c], i, j, k,
-                      load_tri<kForm>(t, tri, stab), ox, oy, oz, dx,
+                      load_tri<kForm>(t, tri, stab), off, ox, oy, oz, dx,
                       upper);
   }
   if (g >= chunks) return;
@@ -383,7 +386,7 @@ recompute_phi_kernel(const float* __restrict__ tri,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         out[q] = cell_phi(t[q], par[q], i, j, k,
-                          load_tri<kForm>(t[q], tri, stab), ox, oy,
+                          load_tri<kForm>(t[q], tri, stab), off, ox, oy,
                           oz, dx, upper);
         next_cell(i, j, k, nj, nk);
       }
@@ -392,7 +395,7 @@ recompute_phi_kernel(const float* __restrict__ tri,
     } else {
       const int t = tid[v];
       phi[v] = cell_phi(t, parity[v], ci, cj, ck,
-                        load_tri<kForm>(t, tri, stab), ox, oy, oz, dx,
+                        load_tri<kForm>(t, tri, stab), off, ox, oy, oz, dx,
                         upper);
     }
     walk(ci, cj, ck, si, sj, sk, nj, nk);
@@ -609,15 +612,16 @@ __device__ __forceinline__ void flush_carry(double* out, int key, int lane,
   __syncwarp();  // before the carries are written again
 }
 
-template <typename Index, bool kRows>
+template <typename Index, bool kRows, bool kShift>
 __global__ void __launch_bounds__(kThreads)
 recompute_vjp_kernel(const float* __restrict__ tri,
                      const int* __restrict__ tid,
                      const unsigned char* __restrict__ parity,
                      const float* __restrict__ grad_phi, Index n, int nj,
-                     int nk, float ox, float oy, float oz, float dx,
-                     Index span, int ranges, int m9, double* __restrict__ out,
-                     unsigned* __restrict__ masks) {
+                     int nk, int3 shift, float ox, float oy, float oz,
+                     float dx, Index span, int ranges, int m9,
+                     double* __restrict__ out, unsigned* __restrict__ masks) {
+  const int3 off = kShift ? shift : make_int3(0, 0, 0);
   // the carry, per lane: in shared memory, so that it holds no registers
   // while cell_vjp runs
   __shared__ double acc[9][kThreads];
@@ -683,8 +687,9 @@ recompute_vjp_kernel(const float* __restrict__ tri,
     if (t < 0) {
       t = -1;
     } else if (up != 0.0f) {
-      const float p[3] = {(float)ci * dx + ox, (float)cj * dx + oy,
-                          (float)ck * dx + oz};
+      const float p[3] = {(float)(ci + off.x) * dx + ox,
+                          (float)(cj + off.y) * dx + oy,
+                          (float)(ck + off.z) * dx + oz};
       cell_vjp(p, tri + 9LL * t, odd ? -up : up, g);
     }
     const unsigned same = __ballot_sync(kFullMask, t == key);
@@ -834,39 +839,48 @@ cudaError_t grid_blocks(Kernel kernel, long long n, int smem, int* blocks) {
   return cudaSuccess;
 }
 
+// A block with a nonzero offset takes the kShift instantiations; the
+// unshifted ones (one device, a grid's first shard) fold the adds away, so
+// the main path's kernels keep their registers and occupancy.
+inline bool shifted(int3 off) {
+  return off.x != 0 || off.y != 0 || off.z != 0;
+}
+
 template <typename Index, int kForm, int kVec>
 cudaError_t launch_phi_form(const float* tri, const float4* table,
                             const int* tid, const unsigned char* parity,
-                            long long n, int nj, int nk, float ox, float oy,
-                            float oz, float dx, float upper, int m,
+                            long long n, int nj, int nk, int3 off, float ox,
+                            float oy, float oz, float dx, float upper, int m,
                             float* phi, cudaStream_t stream) {
   const int smem = kForm == kShared ? m * kQuads * 16 : 0;
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const auto kernel = shifted(off)
+                          ? recompute_phi_kernel<Index, kForm, kVec, true>
+                          : recompute_phi_kernel<Index, kForm, kVec, false>;
   int blocks = 0;
-  const cudaError_t err = grid_blocks(recompute_phi_kernel<Index, kForm, kVec>,
-                                      (n + kVec - 1) / kVec, smem, &blocks);
+  const cudaError_t err =
+      grid_blocks(kernel, (n + kVec - 1) / kVec, smem, &blocks);
   if (err != cudaSuccess) return err;
-  recompute_phi_kernel<Index, kForm, kVec>
-      <<<blocks, kThreads, smem, stream>>>(tri, table, tid, parity, (Index)n,
-                                           nj, nk, ox, oy, oz, dx, upper, m,
-                                           phi);
+  kernel<<<blocks, kThreads, smem, stream>>>(tri, table, tid, parity,
+                                             (Index)n, nj, nk, off, ox, oy,
+                                             oz, dx, upper, m, phi);
   return cudaGetLastError();
 }
 
 template <typename Index, int kForm>
 cudaError_t launch_phi_vec(int vec, const float* tri, const float4* table,
                            const int* tid, const unsigned char* parity,
-                           long long n, int nj, int nk, float ox, float oy,
-                           float oz, float dx, float upper, int m, float* phi,
-                           cudaStream_t stream) {
+                           long long n, int nj, int nk, int3 off, float ox,
+                           float oy, float oz, float dx, float upper, int m,
+                           float* phi, cudaStream_t stream) {
   if (vec == 4)
     return launch_phi_form<Index, kForm, 4>(tri, table, tid, parity, n, nj,
-                                            nk, ox, oy, oz, dx, upper, m, phi,
-                                            stream);
+                                            nk, off, ox, oy, oz, dx, upper, m,
+                                            phi, stream);
   if (vec == 1)
     return launch_phi_form<Index, kForm, 1>(tri, table, tid, parity, n, nj,
-                                            nk, ox, oy, oz, dx, upper, m, phi,
-                                            stream);
+                                            nk, off, ox, oy, oz, dx, upper, m,
+                                            phi, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -874,17 +888,18 @@ template <typename Index>
 cudaError_t launch_phi(int form, int vec, const float* tri,
                        const float4* table, const int* tid,
                        const unsigned char* parity, long long n, int nj,
-                       int nk, float ox, float oy, float oz, float dx,
-                       float upper, int m, float* phi, cudaStream_t stream) {
+                       int nk, int3 off, float ox, float oy, float oz,
+                       float dx, float upper, int m, float* phi,
+                       cudaStream_t stream) {
   switch (form) {
     case kShared:
       return launch_phi_vec<Index, kShared>(vec, tri, table, tid, parity, n,
-                                            nj, nk, ox, oy, oz, dx, upper, m,
-                                            phi, stream);
+                                            nj, nk, off, ox, oy, oz, dx, upper,
+                                            m, phi, stream);
     case kVerts:
       return launch_phi_vec<Index, kVerts>(vec, tri, table, tid, parity, n,
-                                           nj, nk, ox, oy, oz, dx, upper, m,
-                                           phi, stream);
+                                           nj, nk, off, ox, oy, oz, dx, upper,
+                                           m, phi, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -893,19 +908,26 @@ cudaError_t launch_phi(int form, int vec, const float* tri,
 template <bool kRows>
 cudaError_t launch_vjp(const float* tri, const int* tid,
                        const unsigned char* parity, const float* grad_phi,
-                       long long n, int nj, int nk, float ox, float oy,
-                       float oz, float dx, long long span, int ranges, int m9,
-                       double* out, unsigned* masks, cudaStream_t stream) {
+                       long long n, int nj, int nk, int3 off, float ox,
+                       float oy, float oz, float dx, long long span,
+                       int ranges, int m9, double* out, unsigned* masks,
+                       cudaStream_t stream) {
   const int blocks = (ranges + kWarps - 1) / kWarps;
-  if (n < (1LL << 31))
-    recompute_vjp_kernel<unsigned, kRows><<<blocks, kThreads, 0, stream>>>(
-        tri, tid, parity, grad_phi, (unsigned)n, nj, nk, ox, oy, oz, dx,
+  if (n < (1LL << 31)) {
+    const auto kernel = shifted(off)
+                            ? recompute_vjp_kernel<unsigned, kRows, true>
+                            : recompute_vjp_kernel<unsigned, kRows, false>;
+    kernel<<<blocks, kThreads, 0, stream>>>(
+        tri, tid, parity, grad_phi, (unsigned)n, nj, nk, off, ox, oy, oz, dx,
         (unsigned)span, ranges, m9, out, masks);
-  else
-    recompute_vjp_kernel<unsigned long long, kRows>
-        <<<blocks, kThreads, 0, stream>>>(
-            tri, tid, parity, grad_phi, (unsigned long long)n, nj, nk, ox,
-            oy, oz, dx, (unsigned long long)span, ranges, m9, out, masks);
+  } else {
+    const auto kernel =
+        shifted(off) ? recompute_vjp_kernel<unsigned long long, kRows, true>
+                     : recompute_vjp_kernel<unsigned long long, kRows, false>;
+    kernel<<<blocks, kThreads, 0, stream>>>(
+        tri, tid, parity, grad_phi, (unsigned long long)n, nj, nk, off, ox,
+        oy, oz, dx, (unsigned long long)span, ranges, m9, out, masks);
+  }
   return cudaGetLastError();
 }
 
@@ -922,26 +944,31 @@ extern "C" int sdf_recompute_terms(const float* tri, int m, float* table,
   return (int)cudaGetLastError();
 }
 
+// The cells of R1 and R1b are the (n / (nj nk), nj, nk) block whose cell
+// (0, 0, 0) has the global index (oi, oj, ok): cell (i, j, k) sits at
+// f32(i + oi) * dx + ox (zeros on one device; a shard's offset when sharded).
+
 // R1: `form` is a PhiForm, `vec` (1 or 4) the cells a thread takes at a
 // time. kShared reads `table`, filled by sdf_recompute_terms, and takes
 // m <= 384 (48 KB); kVerts reads only `tri`. With vec = 4, tid and phi
 // 16-byte aligned and parity 4-byte.
 extern "C" int sdf_recompute_phi(const float* tri, const float* table,
                                  const int* tid, const unsigned char* parity,
-                                 long long n, int nj, int nk, float ox,
-                                 float oy, float oz, float dx, float upper,
-                                 int m, int form, int vec, float* phi,
-                                 void* stream) {
+                                 long long n, int nj, int nk, int oi, int oj,
+                                 int ok, float ox, float oy, float oz,
+                                 float dx, float upper, int m, int form,
+                                 int vec, float* phi, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
   const float4* table4 = reinterpret_cast<const float4*>(table);
+  const int3 off = make_int3(oi, oj, ok);
   return (int)(n < (1LL << 31)
                    ? launch_phi<unsigned>(form, vec, tri, table4, tid, parity,
-                                          n, nj, nk, ox, oy, oz, dx, upper, m,
-                                          phi, s)
+                                          n, nj, nk, off, ox, oy, oz, dx,
+                                          upper, m, phi, s)
                    : launch_phi<unsigned long long>(
-                         form, vec, tri, table4, tid, parity, n, nj, nk, ox,
-                         oy, oz, dx, upper, m, phi, s));
+                         form, vec, tri, table4, tid, parity, n, nj, nk, off,
+                         ox, oy, oz, dx, upper, m, phi, s));
 }
 
 // M > 1024: the flushes go to `grad_tri` ((M, 9) float64, zeroed by the
@@ -949,12 +976,13 @@ extern "C" int sdf_recompute_phi(const float* tri, const float* table,
 extern "C" int sdf_recompute_vjp(const float* tri, const int* tid,
                                  const unsigned char* parity,
                                  const float* grad_phi, long long n, int nj,
-                                 int nk, float ox, float oy, float oz,
-                                 float dx, long long span, int ranges,
-                                 double* grad_tri, void* stream) {
+                                 int nk, int oi, int oj, int ok, float ox,
+                                 float oy, float oz, float dx, long long span,
+                                 int ranges, double* grad_tri, void* stream) {
   if (n <= 0 || ranges <= 0) return (int)cudaGetLastError();
-  return (int)launch_vjp<false>(tri, tid, parity, grad_phi, n, nj, nk, ox, oy,
-                                oz, dx, span, ranges, 0, grad_tri, nullptr,
+  return (int)launch_vjp<false>(tri, tid, parity, grad_phi, n, nj, nk,
+                                make_int3(oi, oj, ok), ox, oy, oz, dx, span,
+                                ranges, 0, grad_tri, nullptr,
                                 (cudaStream_t)stream);
 }
 
@@ -966,19 +994,19 @@ extern "C" int sdf_recompute_vjp(const float* tri, const int* tid,
 extern "C" int sdf_recompute_vjp_rows(const float* tri, const int* tid,
                                       const unsigned char* parity,
                                       const float* grad_phi, long long n,
-                                      int nj, int nk, float ox, float oy,
-                                      float oz, float dx, long long span,
-                                      int ranges, int m, int groups,
-                                      double* rows, unsigned* masks,
-                                      double* parts, float* grad,
-                                      void* stream) {
+                                      int nj, int nk, int oi, int oj, int ok,
+                                      float ox, float oy, float oz, float dx,
+                                      long long span, int ranges, int m,
+                                      int groups, double* rows,
+                                      unsigned* masks, double* parts,
+                                      float* grad, void* stream) {
   if (m > 1024 || groups < 1)  // the masks' bits
     return (int)cudaErrorInvalidValue;
   if (n <= 0 || ranges <= 0 || m <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch_vjp<true>(tri, tid, parity, grad_phi, n, nj, nk,
-                                     ox, oy, oz, dx, span, ranges, 9 * m,
-                                     rows, masks, s);
+                                     make_int3(oi, oj, ok), ox, oy, oz, dx,
+                                     span, ranges, 9 * m, rows, masks, s);
   if (err != cudaSuccess) return (int)err;
   vjp_rows_sum_kernel<<<dim3((9 * m + 31) / 32, groups), 32 * kSlices, 0,
                         s>>>(rows, masks, ranges, 9 * m, parts, grad);

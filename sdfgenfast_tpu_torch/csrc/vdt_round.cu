@@ -6,8 +6,10 @@
 // closest point x/y/z, the int32 triangle id stored as raw bits, and d2.
 // Every cell visits the 26 donors at `stride` in _OFFSETS26 order (a, b, c
 // each over -1, 0, 1, c fastest), scores each donor's closest point against
-// the cell position f32(index * scale) * dx with the same operation order as
-// vdt._dist2, and adopts all five channels on a strict '<'. Donors outside
+// the cell position f32((index + offset) * scale) * dx with the same
+// operation order as vdt._dist2 (offset: the global level index of local
+// cell 0 on each axis, signed: a shard's halo-extended block starts below
+// 0 on the grid's first shard), and adopts all five channels on a strict '<'. Donors outside
 // the grid do not exist: they are excluded by index, never by a sentinel
 // value (the jnp round reads FAR padding there, which never wins). Reads come
 // from `in`, writes go to `out`: the caller ping-pongs two buffers, which is
@@ -92,8 +94,8 @@ template <int kRows>
 __global__ void __launch_bounds__(kThreads, 3)
 vdt_round_kernel(const unsigned int* __restrict__ in,
                  unsigned int* __restrict__ out, int ni, int nj, int nk,
-                 int stride, int scale, float dx, int seg, int segs_a,
-                 int tiles_b) {
+                 int stride, int scale, int oi, int oj, int ok, float dx,
+                 int seg, int segs_a, int tiles_b) {
   constexpr int kTileB = kRows * kWarps;
   constexpr int kRowsB = kTileB + 2;
   extern __shared__ unsigned int ring[];
@@ -163,11 +165,11 @@ vdt_round_kernel(const unsigned int* __restrict__ in,
   for (int h = 0; h < kRows; ++h) {
     j[h] = rj + (qb0 + b0 + h) * s;
     live[h] = j[h] < nj && k < nk;
-    py[h] = (float)(j[h] * scale) * dx;
+    py[h] = (float)((j[h] + oj) * scale) * dx;
     idx0[h] =
         live[h] ? ((long long)(ri + qa0 * s) * nj + j[h]) * nk + k : 0;
   }
-  const float pz = (float)(k * scale) * dx;
+  const float pz = (float)((k + ok) * scale) * dx;
   // rows b0 - 1 .. b0 + kRows of the plane, and k offsets -1, 0, 1
   bool vrj[kRows + 2];
 #pragma unroll
@@ -212,9 +214,9 @@ vdt_round_kernel(const unsigned int* __restrict__ in,
     const int gi = ri + (qa0 - 1 + la) * s;
     const bool vrow = gi >= 0 && gi < ni;  // block-uniform
     const bool has0 = la >= 2, has1 = la >= 1 && la <= na, has2 = la < na;
-    const float px0 = (float)((gi - s) * scale) * dx;  // cells la - 2
-    const float px1 = (float)(gi * scale) * dx;        // cells la - 1
-    const float px2 = (float)((gi + s) * scale) * dx;  // cells la
+    const float px0 = (float)((gi - s + oi) * scale) * dx;  // cells la - 2
+    const float px1 = (float)((gi + oi) * scale) * dx;      // cells la - 1
+    const float px2 = (float)((gi + s + oi) * scale) * dx;  // cells la
     const unsigned int* slot = ring + (la % kSlots) * plane_words;
     // Merge the plane's donors into the cells la - 2, la - 1 and la that
     // exist (use0..2). A donor outside the grid does not exist: rows of the
@@ -306,7 +308,8 @@ vdt_round_kernel(const unsigned int* __restrict__ in,
 }  // namespace
 
 extern "C" int sdf_vdt_round(const void* in, void* out, int ni, int nj, int nk,
-                             int stride, int scale, float dx, void* stream) {
+                             int stride, int scale, int oi, int oj, int ok,
+                             float dx, void* stream) {
   if ((long long)ni * nj * nk <= 0) return (int)cudaGetLastError();
   if (stride < 1) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
@@ -355,7 +358,7 @@ extern "C" int sdf_vdt_round(const void* in, void* out, int ni, int nj, int nk,
     if (e != cudaSuccess) return e;
     kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
         (const unsigned int*)in, (unsigned int*)out, ni, nj, nk, stride,
-        scale, dx, seg, segs_a, tiles_b);
+        scale, oi, oj, ok, dx, seg, segs_a, tiles_b);
     return cudaGetLastError();
   };
   return (int)(rows == 2 ? launch(vdt_round_kernel<2>)

@@ -46,20 +46,21 @@ _LP = ctypes.POINTER(ctypes.c_longlong)
 # a value written back as int* or long long*)
 _SIGNATURES = {
     "sdf_band_coefs": [_P, _I, _P, _P],
-    "sdf_band_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+    "sdf_band_rows": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                       _P, _P, _P, _P, _P, _P],
-    "sdf_vdt_round": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "sdf_vdt_round": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "sdf_chamfer": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     "sdf_dense_stream": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "sdf_dense_stream_counted": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P,
                                  _P, _P],
     "sdf_recompute_terms": [_P, _I, _P, _P],
-    "sdf_recompute_phi": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _F, _I,
-                          _I, _I, _P, _P],
-    "sdf_recompute_vjp": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _L, _I,
-                          _P, _P],
-    "sdf_recompute_vjp_rows": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F,
-                               _L, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sdf_recompute_phi": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F,
+                          _F, _F, _F, _I, _I, _I, _P, _P],
+    "sdf_recompute_vjp": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _F,
+                          _F, _L, _I, _P, _P],
+    "sdf_recompute_vjp_rows": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,
+                               _F, _F, _F, _L, _I, _I, _I, _P, _P, _P, _P,
+                               _P],
     "sdf_probe_vpu_peak": [_P, _P, _L, _I, _I, _P],
     "sdf_probe_vpu_mixed": [_P, _P, _L, _I, _P],
     "sdf_probe_scale2": [_P, _P, _L, _L, _I, _I, _L, _P],

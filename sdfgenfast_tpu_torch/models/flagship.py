@@ -9,7 +9,9 @@ gradient descent on an SDF-space loss. The binning is static state, redone
 by :meth:`SDFGenerator.refresh` when the vertices move across cells. With
 ``far_field="eikonal"`` the gradient flows through the seeded band only
 (the far field is an estimate that carries none).
-Multi-GPU (``device_mesh``) is not ported yet.
+With a ``device_mesh`` (``parallel.make_device_mesh``) the forward is
+``parallel.sharded_sdf``: each shard evaluates its block from
+``verts.to(its device)``, and autograd sums the shards' vertex gradients.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import torch
 
 from ..grid import GridSpec
 from ..mesh import Mesh
+from ..parallel.sharded import (DeviceMesh, ShardedBinned, bin_mesh_sharded,
+                                check_device_mesh, sharded_sdf)
 from ..pipeline import Binned, SDFConfig, bin_mesh, make_level_set3
 
 __all__ = ["SDFGenerator", "sgd_step"]
@@ -30,25 +34,38 @@ __all__ = ["SDFGenerator", "sgd_step"]
 @dataclasses.dataclass
 class SDFGenerator:
     """verts are the trainable parameters; topology and binning are static
-    state on the host. `device` is where the grid is computed."""
+    state on the host. `device` is where the grid is computed; with a
+    `device_mesh` the grid is sharded over its devices and `device`
+    (default: the mesh's first device, where the grid is assembled) holds
+    the parameters."""
 
     mesh: Mesh
     grid: GridSpec
     config: SDFConfig = dataclasses.field(default_factory=SDFConfig)
-    device: Union[str, torch.device] = dataclasses.field(kw_only=True)
-    device_mesh: Optional[object] = None
+    device: Optional[Union[str, torch.device]] = dataclasses.field(
+        default=None, kw_only=True)
+    device_mesh: Optional[DeviceMesh] = None
     binned: Optional[Binned] = None
+    sharded_binned: Optional[ShardedBinned] = None
 
     def __post_init__(self):
         if self.device_mesh is not None:
-            raise NotImplementedError(
-                "device_mesh (multi-GPU sharding) is not ported yet")
+            check_device_mesh(self.device_mesh)
+            if self.device is None:
+                self.device = self.device_mesh.devices[0, 0]
+        elif self.device is None:
+            raise TypeError("SDFGenerator needs a device (or a device_mesh)")
         self.device = torch.device(self.device)
-        if self.binned is None:
+        if self.binned is None and self.sharded_binned is None:
             self.refresh()
 
     def refresh(self):
-        self.binned = bin_mesh(self.mesh, self.grid, self.config)
+        if self.device_mesh is not None:
+            self.sharded_binned = bin_mesh_sharded(
+                self.mesh, self.grid, self.device_mesh.devices.shape,
+                self.config)
+        else:
+            self.binned = bin_mesh(self.mesh, self.grid, self.config)
 
     @property
     def params(self) -> torch.Tensor:
@@ -57,6 +74,9 @@ class SDFGenerator:
 
     def forward(self, verts: torch.Tensor) -> torch.Tensor:
         """SDF grid from vertex positions (differentiable)."""
+        if self.device_mesh is not None:
+            return sharded_sdf(self.sharded_binned, self.device_mesh,
+                               verts=verts)
         return make_level_set3(self.mesh, self.grid, self.config,
                                binned=self.binned, device=self.device,
                                verts=verts)

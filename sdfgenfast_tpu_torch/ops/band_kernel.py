@@ -14,6 +14,11 @@ parameters) comes from a per-triangle (M, 40) coefficient table
 half, ``(cx*x + (cy*y + c0)) + cz*z``, so that a CUDA thread computes the
 row half once for the eight cells of its row.
 
+Sharded blocks (``parallel/sharded.py``) pass coordinate ids: rows are
+indexed by the block's local tile ids, cell positions come from the global
+tile ids on the global tile grid, and ``upper`` from the global grid, so
+every cell equals the single-device run's bit for bit.
+
 ``band_rows`` launches two CUDA kernels (``csrc/band_rows.cu``) for CUDA
 tensors, the coefficient pass (:func:`band_coefs`) and the tile walk, and
 runs ``band_rows_reference``, its plain-torch twin, for CPU tensors.
@@ -184,21 +189,46 @@ def _tile_cells(ids, tiles_dim, dx, device):
     return x, y, z
 
 
+def _coords(ids, tiles_dim, grid_shape, coord_ids, coord_tiles_dim,
+            coord_grid_shape):
+    """The coordinate stream: (ids, tiles_dim, grid_shape) by default."""
+    given = (coord_ids, coord_tiles_dim, coord_grid_shape)
+    if all(v is None for v in given):
+        return ids, tuple(tiles_dim), tuple(grid_shape)
+    if any(v is None for v in given):
+        raise ValueError("give all of coord_ids, coord_tiles_dim, "
+                         "coord_grid_shape or none")
+    if coord_ids.dtype != torch.int32 or coord_ids.shape != ids.shape:
+        raise ValueError(f"coord_ids must be int32 {tuple(ids.shape)}, got "
+                         f"{tuple(coord_ids.shape)} {coord_ids.dtype}")
+    if coord_ids.device != ids.device:
+        raise ValueError(f"coord_ids is on {coord_ids.device}, ids on "
+                         f"{ids.device}")
+    return (coord_ids, tuple(int(v) for v in coord_tiles_dim),
+            tuple(int(v) for v in coord_grid_shape))
+
+
 def band_rows_reference(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim,
-                        grid_shape):
+                        grid_shape, coord_ids=None, coord_tiles_dim=None,
+                        coord_grid_shape=None):
     """Plain-torch twin of :func:`band_rows`: the k-th candidate of every
     tile segment is evaluated for all 512 cells at once, k = 0, 1, ..., and
     merged with a strict '<', its closest point tracked with it — the
     kernel's walk, vectorized over tiles."""
+    cids, ctd, cgs = _coords(ids, tiles_dim, grid_shape, coord_ids,
+                             coord_tiles_dim, coord_grid_shape)
     dev = tri9.device
     M = tri9.shape[0]
     T = int(np.prod(tiles_dim))
-    upper = _upper(grid_shape, dx)
+    upper = _upper(cgs, dx)
     rows = _filled_rows(T, upper, dev)
+    # padded slots (local id T) are skipped; their coordinates never read
+    keep = ids < T
+    ids, off, cnt, cids = ids[keep], off[keep], cnt[keep], cids[keep]
     A = ids.shape[0]
     if A == 0:
         return rows
-    x, y, z = _tile_cells(ids, tiles_dim, dx, dev)
+    x, y, z = _tile_cells(cids, ctd, dx, dev)
     best = torch.full((A, TILE_CELLS), float("inf"), device=dev)
     best_t = torch.full((A, TILE_CELLS), -1, dtype=torch.int32, device=dev)
     bd = [torch.zeros((A, TILE_CELLS), device=dev) for _ in range(3)]
@@ -251,40 +281,56 @@ def band_coefs(tri9):
 band_coefs.launches = 0
 
 
-def _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, grid_shape):
+def _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, cids,
+                 coord_tiles_dim, coord_grid_shape):
     """One launch of the tile walk into `rows` (the kernel writes every
     active tile's row whole)."""
     with torch.cuda.device(coef.device):
         build.check(build.library().sdf_band_rows(
             coef.data_ptr(), coef.shape[0], pair.data_ptr(), ids.data_ptr(),
-            off.data_ptr(), cnt.data_ptr(), ids.shape[0], tiles_dim[1],
-            tiles_dim[2], int(sum(grid_shape)), float(dx),
+            cids.data_ptr(), off.data_ptr(), cnt.data_ptr(), ids.shape[0],
+            int(np.prod(tiles_dim)), coord_tiles_dim[1], coord_tiles_dim[2],
+            int(sum(coord_grid_shape)), float(dx),
             *(r.data_ptr() for r in rows),
             torch.cuda.current_stream().cuda_stream), "sdf_band_rows")
 
 
-def band_rows(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim, grid_shape):
+def band_rows(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim, grid_shape,
+              coord_ids=None, coord_tiles_dim=None, coord_grid_shape=None):
     """(T+1, 512) rows of (phi f32, tid int32, cpx, cpy, cpz f32).
 
     tri9: (M, 9) float32 GRID-LOCAL triangle vertices (origin subtracted);
     pair: (P,) int32 CSR candidate ids (ids >= M are padding); ids: (A,)
-    int32 linear tile ids (T for padded slots); off/cnt: (A,) int32 segment
-    starts and lengths. Rows of tiles that are not active hold the
-    no-candidate values (upper, -1, FAR); row T is junk.
+    int32 linear tile ids of the (T-tile) `tiles_dim` grid, T for padded
+    slots, which are skipped; off/cnt: (A,) int32 segment starts and
+    lengths. Rows of tiles that are not active hold the no-candidate values
+    (upper, -1, FAR); row T is junk.
+
+    A shard's block gives all three coord arguments (as
+    ``band_pallas.band_rows_pallas``): coord_ids (A,) int32, each slot's
+    tile id in the global `coord_tiles_dim` grid of the global
+    `coord_grid_shape`, whose cells give the positions and whose
+    f32(ni + nj + nk) * dx gives `upper`; rows stay indexed by `ids`.
     CUDA: the coefficient pass and one K2 launch. CPU:
     :func:`band_rows_reference`.
     """
     _check_args(tri9, pair, ids, off, cnt)
+    kw = dict(coord_ids=coord_ids, coord_tiles_dim=coord_tiles_dim,
+              coord_grid_shape=coord_grid_shape)
     if tri9.device.type == "cpu":
         return band_rows_reference(tri9, pair, ids, off, cnt, dx,
-                                   tiles_dim=tiles_dim, grid_shape=grid_shape)
+                                   tiles_dim=tiles_dim, grid_shape=grid_shape,
+                                   **kw)
     if tri9.device.type != "cuda":
         raise ValueError(f"band_rows: unsupported device {tri9.device}")
-    pair, ids, off, cnt = (a.contiguous() for a in (pair, ids, off, cnt))
+    cids, ctd, cgs = _coords(ids, tiles_dim, grid_shape, **kw)
+    pair, ids, off, cnt, cids = (a.contiguous()
+                                 for a in (pair, ids, off, cnt, cids))
     T = int(np.prod(tiles_dim))
-    rows = _filled_rows(T, _upper(grid_shape, dx), tri9.device)
+    rows = _filled_rows(T, _upper(cgs, dx), tri9.device)
     coef = band_coefs(tri9)
-    _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, grid_shape)
+    _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, cids, ctd,
+                 cgs)
     band_rows.launches += 1
     return rows
 

@@ -31,8 +31,9 @@ package's ``jax.checkpoint`` with ``nothing_saveable`` per 2^20-cell chunk:
   (the cells' gathered vertex coordinates are the leaves) and sums the
   per-cell gradients into float64, cast once.
 
-Cell (i, j, k) sits at ``f32(i) * dx + origin[0]`` (world coordinates), as
-in the JAX function. ``recompute_terms.launches`` (R1's table),
+Cell (i, j, k) sits at ``f32(i + ijk_offset[0]) * dx + origin[0]`` (world
+coordinates), as in the JAX function: `ijk_offset` (None = zeros) is the
+global index of a shard block's cell (0, 0, 0). ``recompute_terms.launches`` (R1's table),
 ``recompute_forward.launches`` and ``recompute_backward.launches`` count
 kernel launches.
 """
@@ -96,14 +97,22 @@ VJP_ROW_BYTES = 256 << 20
 VJP_SUM_BLOCKS = 2 * 132
 
 
+def _offset(ijk_offset):
+    off = (0, 0, 0) if ijk_offset is None else tuple(int(v) for v in ijk_offset)
+    if len(off) != 3:
+        raise ValueError(f"ijk_offset must hold three ints, got {ijk_offset}")
+    return off
+
+
 def _cell_positions(start: int, count: int, grid_shape, origin, dx: float,
-                    device):
-    """World positions f32(index) * dx + origin of flat cells
+                    device, ijk_offset=None):
+    """World positions f32(index + ijk_offset) * dx + origin of flat cells
     [start, start + count) (k fastest)."""
     _, nj, nk = grid_shape
     idx = torch.arange(start, start + count, dtype=torch.int64, device=device)
     ijk = (idx // (nj * nk), (idx // nk) % nj, idx % nk)
-    return tuple(c.to(torch.float32) * dx + o for c, o in zip(ijk, origin))
+    return tuple((c + a).to(torch.float32) * dx + o
+                 for c, a, o in zip(ijk, _offset(ijk_offset), origin))
 
 
 def _phi_chunk(a, b, c, p, tid, parity, upper: float):
@@ -119,7 +128,8 @@ def _chunks(n: int, chunk_cells: int):
 
 
 def recompute_forward_reference(tri_verts, tid, parity, origin, dx: float,
-                                upper: float, chunk_cells: int = CHUNK_CELLS):
+                                upper: float, chunk_cells: int = CHUNK_CELLS,
+                                ijk_offset=None):
     """Plain-torch twin of :func:`recompute_forward`, by chunks of
     `chunk_cells` cells. Differentiable when called under autograd."""
     tri9 = tri_verts.reshape(-1, 9).T
@@ -127,14 +137,15 @@ def recompute_forward_reference(tri_verts, tid, parity, origin, dx: float,
     out = []
     for s, n in _chunks(flat_tid.numel(), chunk_cells):
         t = flat_tid[s:s + n]
-        p = _cell_positions(s, n, tid.shape, origin, dx, tid.device)
+        p = _cell_positions(s, n, tid.shape, origin, dx, tid.device,
+                            ijk_offset)
         out.append(_phi_chunk(*gather_tri9(tri9, t), p, t,
                               flat_par[s:s + n], upper))
     return torch.cat(out).reshape(tid.shape)
 
 
 def _chunk_vjps(tri_verts, tid, parity, grad_phi, origin, dx: float,
-                upper: float, chunk_cells: int):
+                upper: float, chunk_cells: int, ijk_offset=None):
     """Per chunk of `chunk_cells` cells: (ids, the nine per-cell gradients
     with respect to the cells' gathered vertex coordinates), phi evaluated
     again under autograd."""
@@ -143,7 +154,8 @@ def _chunk_vjps(tri_verts, tid, parity, grad_phi, origin, dx: float,
     flat_g = grad_phi.reshape(-1)
     for s, n in _chunks(flat_tid.numel(), chunk_cells):
         t = flat_tid[s:s + n]
-        p = _cell_positions(s, n, tid.shape, origin, dx, tid.device)
+        p = _cell_positions(s, n, tid.shape, origin, dx, tid.device,
+                            ijk_offset)
         leaves = [v.requires_grad_() for abc in gather_tri9(tri9, t)
                   for v in abc]
         with torch.enable_grad():
@@ -155,16 +167,19 @@ def _chunk_vjps(tri_verts, tid, parity, grad_phi, origin, dx: float,
 
 
 def cell_vjp_reference(tri_verts, tid, parity, grad_phi, origin, dx: float,
-                       upper: float, chunk_cells: int = CHUNK_CELLS):
+                       upper: float, chunk_cells: int = CHUNK_CELLS,
+                       ijk_offset=None):
     """The per-cell terms of :func:`recompute_backward_reference`: (n, 9)
     float32, cell-major (k fastest), columns (a, b, c) x (x, y, z)."""
     return torch.cat([torch.stack(g, 1) for _, g in _chunk_vjps(
-        tri_verts, tid, parity, grad_phi, origin, dx, upper, chunk_cells)])
+        tri_verts, tid, parity, grad_phi, origin, dx, upper, chunk_cells,
+        ijk_offset)])
 
 
 def recompute_backward_reference(tri_verts, tid, parity, grad_phi, origin,
                                  dx: float, upper: float,
-                                 chunk_cells: int = CHUNK_CELLS):
+                                 chunk_cells: int = CHUNK_CELLS,
+                                 ijk_offset=None):
     """Plain-torch twin of :func:`recompute_backward`: every chunk's phi is
     evaluated again under autograd with the cells' gathered vertex
     coordinates as leaves; the per-cell gradients are summed per triangle
@@ -172,7 +187,7 @@ def recompute_backward_reference(tri_verts, tid, parity, grad_phi, origin,
     m = tri_verts.shape[0]
     acc = torch.zeros((9, m), dtype=torch.float64, device=tri_verts.device)
     for t, grads in _chunk_vjps(tri_verts, tid, parity, grad_phi, origin, dx,
-                                upper, chunk_cells):
+                                upper, chunk_cells, ijk_offset):
         ids = torch.clamp(t, min=0).long()
         for r, g in enumerate(grads):
             acc[r].index_add_(0, ids, g.double())
@@ -221,14 +236,15 @@ def vjp_sum_groups(ranges: int, m: int) -> int:
     return max(1, min(-(-VJP_SUM_BLOCKS // blocks), ranges // 32))
 
 
-def _launch(entry: str, tensors, tid, origin, dx: float, tail, out):
+def _launch(entry: str, tensors, tid, origin, dx: float, ijk_offset, tail,
+            out):
     lib = build.library()
     with torch.cuda.device(tid.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(getattr(lib, entry)(
             *(x.data_ptr() for x in tensors), tid.numel(), tid.shape[1],
-            tid.shape[2], *(float(o) for o in origin), float(dx), *tail,
-            out.data_ptr(), stream), entry)
+            tid.shape[2], *_offset(ijk_offset), *(float(o) for o in origin),
+            float(dx), *tail, out.data_ptr(), stream), entry)
 
 
 def r1_config(m: int):
@@ -290,22 +306,22 @@ def _aligned(x, nbytes: int):
 
 
 def recompute_forward(tri_verts, tid, parity, origin, dx: float,
-                      upper: float):
+                      upper: float, ijk_offset=None):
     """Signed phi (ni, nj, nk) float32 from the frozen ids and parity.
     CUDA: R1 in :func:`r1_config`'s form (:func:`r1_launch`). CPU:
     :func:`recompute_forward_reference`."""
     device = _check(tri_verts, tid, parity)
     if device.type == "cpu":
         return recompute_forward_reference(tri_verts, tid, parity, origin,
-                                           dx, upper)
+                                           dx, upper, ijk_offset=ijk_offset)
     if device.type != "cuda":
         raise ValueError(f"recompute_forward: unsupported device {device}")
     return r1_launch(tri_verts, tid, parity, origin, dx, upper,
-                     *r1_config(tri_verts.shape[0]))
+                     *r1_config(tri_verts.shape[0]), ijk_offset=ijk_offset)
 
 
 def r1_launch(tri_verts, tid, parity, origin, dx: float, upper: float,
-              form: str, cells_per_thread: int):
+              form: str, cells_per_thread: int, ijk_offset=None):
     """R1 on CUDA tensors: the triangle terms from `form` (one of R1_FORMS;
     "shared" first builds the table, :func:`recompute_terms`),
     `cells_per_thread` (one of R1_CELLS_PER_THREAD) cells a thread at a
@@ -324,8 +340,8 @@ def r1_launch(tri_verts, tid, parity, origin, dx: float, upper: float,
              torch.empty((0, R1_TERMS), dtype=torch.float32, device=device))
     phi = torch.empty(tid.shape, dtype=torch.float32, device=device)
     _launch("sdf_recompute_phi", (tri_verts, table, tid, parity), tid, origin,
-            dx, (float(upper), m, R1_FORMS.index(form), cells_per_thread),
-            phi)
+            dx, ijk_offset,
+            (float(upper), m, R1_FORMS.index(form), cells_per_thread), phi)
     recompute_forward.launches += 1
     return phi
 
@@ -334,7 +350,7 @@ recompute_forward.launches = 0
 
 
 def recompute_backward(tri_verts, tid, parity, grad_phi, origin, dx: float,
-                       upper: float):
+                       upper: float, ijk_offset=None):
     """Vertex gradient (M, 3, 3) float32 of <grad_phi, phi>. CUDA: one R1b
     call. Up to VJP_ROWS_MAX_TRIS triangles its sum is atomic-free and in
     a fixed order (per-range float64 rows with a mask of the triangles each
@@ -344,7 +360,8 @@ def recompute_backward(tri_verts, tid, parity, grad_phi, origin, dx: float,
     device = _check(tri_verts, tid, parity, grad_phi)
     if device.type == "cpu":
         return recompute_backward_reference(tri_verts, tid, parity, grad_phi,
-                                            origin, dx, upper)
+                                            origin, dx, upper,
+                                            ijk_offset=ijk_offset)
     if device.type != "cuda":
         raise ValueError(f"recompute_backward: unsupported device {device}")
     tensors = [x.detach().contiguous()
@@ -360,12 +377,12 @@ def recompute_backward(tri_verts, tid, parity, grad_phi, origin, dx: float,
         parts = torch.empty((groups, m, 9), dtype=torch.float64, device=device)
         grad = torch.empty(tri_verts.shape, dtype=torch.float32, device=device)
         _launch("sdf_recompute_vjp_rows", tensors, tensors[1], origin, dx,
-                (span, ranges, m, groups, rows.data_ptr(), masks.data_ptr(),
+                ijk_offset, (span, ranges, m, groups, rows.data_ptr(), masks.data_ptr(),
                  parts.data_ptr()), grad)
     else:
         acc = torch.zeros(tri_verts.shape, dtype=torch.float64, device=device)
         _launch("sdf_recompute_vjp", tensors, tensors[1], origin, dx,
-                (span, ranges), acc)
+                ijk_offset, (span, ranges), acc)
         grad = acc.to(torch.float32)
     recompute_backward.launches += 1
     return grad
@@ -376,35 +393,42 @@ recompute_backward.launches = 0
 
 class _RecomputePhi(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tri_verts, tid, parity, origin, dx, upper):
+    def forward(ctx, tri_verts, tid, parity, origin, dx, upper, ijk_offset):
         ctx.save_for_backward(tri_verts, tid, parity)
         ctx.origin, ctx.dx, ctx.upper = origin, dx, upper
+        ctx.ijk_offset = ijk_offset
         return recompute_forward(tri_verts.detach(), tid, parity, origin, dx,
-                                 upper)
+                                 upper, ijk_offset=ijk_offset)
 
     @staticmethod
     def backward(ctx, grad_phi):
         tri_verts, tid, parity = ctx.saved_tensors
         grad = recompute_backward(tri_verts, tid, parity,
                                   grad_phi.contiguous(), ctx.origin, ctx.dx,
-                                  ctx.upper)
-        return grad, None, None, None, None, None
+                                  ctx.upper, ijk_offset=ctx.ijk_offset)
+        return grad, None, None, None, None, None, None
 
 
 def recompute_phi(tri_verts, tid, parity, origin: Sequence[float], dx: float,
-                  upper: float):
+                  upper: float, ijk_offset=None):
     """phi(cell) = sign * distance(cell, tri_verts[tid]), differentiable in
     `tri_verts` ((M, 3, 3) float32). tid (ni, nj, nk) int32, parity bool of
     the same shape, on the device of tri_verts; origin three float32-
-    representable floats, dx and upper floats."""
+    representable floats, dx and upper floats; ijk_offset the global
+    (i, j, k) of cell (0, 0, 0) (None = zeros)."""
     origin = tuple(float(np.float32(o)) for o in origin)
     return _RecomputePhi.apply(tri_verts, tid, parity, origin,
-                               float(np.float32(dx)), float(np.float32(upper)))
+                               float(np.float32(dx)), float(np.float32(upper)),
+                               _offset(ijk_offset))
 
 
 def recompute_stage(tri_verts, tid, parity, origin: Sequence[float],
-                    dx: float):
+                    dx: float, ijk_offset=None, grid_shape=None):
     """:func:`recompute_phi` with the reference's far value
-    ``upper = f32(ni + nj + nk) * dx`` (cpu_lib/makelevelset3.cpp:197)."""
-    upper = np.float32(sum(tid.shape)) * np.float32(dx)
-    return recompute_phi(tri_verts, tid, parity, origin, dx, float(upper))
+    ``upper = f32(ni + nj + nk) * dx`` (cpu_lib/makelevelset3.cpp:197) of
+    `grid_shape` (default: tid's; a shard's block passes the global grid's
+    and its `ijk_offset`)."""
+    shape = tid.shape if grid_shape is None else grid_shape
+    upper = np.float32(sum(shape)) * np.float32(dx)
+    return recompute_phi(tri_verts, tid, parity, origin, dx, float(upper),
+                         ijk_offset)

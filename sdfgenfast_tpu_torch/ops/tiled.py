@@ -1,8 +1,9 @@
 """Per-tile candidate evaluation for any band tile shape, in plain torch.
 
-Counterpart of ``sdfgenfast_tpu/ops/tiled.py`` on one device (the sharded
-``ijk_offset`` / ``upper_override`` arguments and the pre-materialised
-``tbl`` blocks are not ported). The band of every tile shape other than
+Counterpart of ``sdfgenfast_tpu/ops/tiled.py`` (the pre-materialised
+``tbl`` blocks are not ported). A shard's block passes ``ijk_offset``, the
+global index of its cell (0, 0, 0), and ``upper_override``, the global
+grid's upper bound. The band of every tile shape other than
 8^3 comes from here; 8^3 tiles take kernel K2 (``ops/band_kernel.py``),
 which computes the same function.
 
@@ -105,12 +106,16 @@ def _tile_local_offsets(tile_shape, device):
     return torch.stack(grid, dim=-1).reshape(-1, 3)
 
 
-def _tile_cells(ids, tile_shape, tiles_dim, local):
-    """(B, C, 3) int64 global cell indices of the tiles `ids`."""
+def _tile_cells(ids, tile_shape, tiles_dim, local, ijk_offset=None):
+    """(B, C, 3) int64 cell indices of the tiles `ids`, shifted by
+    `ijk_offset` ((i, j, k) ints; None = zeros)."""
     _, ntj, ntk = tiles_dim
     t = ids.to(torch.int64)
     base = torch.stack([t // (ntk * ntj), (t // ntk) % ntj, t % ntk], dim=-1)
     base = base * torch.tensor(tile_shape, device=ids.device)
+    if ijk_offset is not None:
+        base = base + torch.tensor([int(v) for v in ijk_offset],
+                                   device=ids.device)
     return base[:, None, :] + local[None, :, :]
 
 
@@ -128,7 +133,8 @@ def _form(cf, col, x, y, z):
 def tile_candidate_rows(tri_verts, active_ids, cand, cand_valid, origin,
                         dx: float, tile_shape: Tuple[int, int, int],
                         tiles_dim: Tuple[int, int, int],
-                        grid_shape: Tuple[int, int, int], chunk: int = 128):
+                        grid_shape: Tuple[int, int, int], chunk: int = 128,
+                        ijk_offset=None, upper_override=None):
     """(A, C) (phi, tid) rows of the active tiles: each cell's minimum over
     its tile's candidates (the lowest id among ties), ``upper`` and -1 where
     no candidate comes below ``upper``.
@@ -136,12 +142,15 @@ def tile_candidate_rows(tri_verts, active_ids, cand, cand_valid, origin,
     tri_verts (M, 3, 3) float32 WORLD vertices; active_ids (A,) int32
     linear tile ids; cand / cand_valid (A, K) int32 / bool; origin (3,)
     float32 tensor; dx a float32-representable float. Cell positions are
-    f32(i) * dx in grid-local coordinates."""
+    f32(i + ijk_offset) * dx in grid-local coordinates; ``upper`` is
+    f32(ni + nj + nk) * dx of `grid_shape`, or `upper_override` (a shard's
+    block passes the global grid's)."""
     device = tri_verts.device
     M = tri_verts.shape[0]
     A = active_ids.shape[0]
     C = int(np.prod(tile_shape))
-    upper = _upper(grid_shape, dx)
+    upper = (_upper(grid_shape, dx) if upper_override is None
+             else np.float32(upper_override))
     if A == 0:
         return (torch.zeros((0, C), dtype=torch.float32, device=device),
                 torch.zeros((0, C), dtype=torch.int32, device=device))
@@ -152,8 +161,8 @@ def tile_candidate_rows(tri_verts, active_ids, cand, cand_valid, origin,
     for s, e in _chunks(A, chunk):
         cd = cand_idx[s:e]
         tbl = table[cd][:, None]  # (B, 1, K, 40): one row gather a pair
-        p = _tile_cells(active_ids[s:e], tile_shape, tiles_dim,
-                        local).to(torch.float32) * dx  # (B, C, 3)
+        p = _tile_cells(active_ids[s:e], tile_shape, tiles_dim, local,
+                        ijk_offset).to(torch.float32) * dx  # (B, C, 3)
         x, y, z = (p[..., i, None] for i in range(3))  # (B, C, 1)
 
         h = _form(tbl, 0, x, y, z)
@@ -231,9 +240,10 @@ def tile_candidate_field(tri_verts, active_ids, cand, cand_valid, origin,
 
 
 def closest_point_rows(table, active_ids, tid_rows, dx: float, tile_shape,
-                       tiles_dim, chunk: int = 128):
+                       tiles_dim, chunk: int = 128, ijk_offset=None):
     """Exact closest points of the band winners, the VDT seeds: (cpx, cpy,
-    cpz) rows (A, C) in grid-local coordinates, FAR where tid < 0.
+    cpz) rows (A, C) in grid-local coordinates, FAR where tid < 0. Cells
+    sit at f32(i + ijk_offset) * dx, as in :func:`tile_candidate_rows`.
 
     One table row gathered per cell (its winner's), then the case analysis
     of the distance (cpu_lib/makelevelset3.cpp:49-70): inside, p - h*n;
@@ -250,8 +260,8 @@ def closest_point_rows(table, active_ids, tid_rows, dx: float, tile_shape,
     for s, e in _chunks(A, chunk):
         tids = tid_rows[s:e]
         tbl = table[torch.where(tids >= 0, tids, M).to(torch.int64)]
-        p = _tile_cells(active_ids[s:e], tile_shape, tiles_dim,
-                        local).to(torch.float32) * dx
+        p = _tile_cells(active_ids[s:e], tile_shape, tiles_dim, local,
+                        ijk_offset).to(torch.float32) * dx
         u = (p[..., 0], p[..., 1], p[..., 2])
 
         h = _form(tbl, 0, *u)

@@ -2,8 +2,10 @@
 flat and capped jump-flood ladders, the pyramid schedule and the chamfer
 relaxation, in plain torch.
 
-Counterpart of ``sdfgenfast_tpu/ops/vdt.py`` for one device (the sharded
-halo rounds are not ported). Propagating the
+Counterpart of ``sdfgenfast_tpu/ops/vdt.py``. Positions, the downsample and
+the ladder take global index offsets, and the ladder runs over a set of
+blocks with halo exchanges (``halo_extend``), for the sharded far field
+(``parallel/sharded.py``). Propagating the
 closest POINT (Danielsson's vector distance transform with jump-flooding
 strides) keeps every propagated distance an exact distance to a point on
 some mesh triangle, so the far field is an overestimate that shrinks as
@@ -31,6 +33,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "FAR",
+    "finish_state",
+    "seed_state",
     "PYRAMID_LEVEL_ROUNDS",
     "PYRAMID_COARSE_ROUNDS",
     "stride_ladder",
@@ -176,6 +180,39 @@ def stride_ladder(max_dim: int, max_hop=None, extra_rounds: int = 2):
     return tuple(strides + [1] * extra_rounds)
 
 
+def seed_state(cpx, cpy, cpz, tid, dx: float, offsets=None):
+    """The (5, ni, nj, nk) state of the seeds, d2 scored against the cell
+    positions (`offsets`: the global index of local cell (0, 0, 0))."""
+    px, py, pz = _level_pos_axes(cpx.shape, dx, 1, cpx.device, offsets)
+    return pack_state(cpx, cpy, cpz, tid, _dist2(px, py, pz, cpx, cpy, cpz))
+
+
+def finish_state(state, tid, phi_seed, freeze_mask):
+    """(phi, tid) of a converged state: cells in `freeze_mask` keep their
+    seed values, every other cell takes min(|p - cp|, phi_seed) and the
+    propagated id."""
+    phi = sqrt_f32(torch.clamp(state[4], min=0.0))
+    return (
+        torch.where(freeze_mask, phi_seed, torch.minimum(phi, phi_seed)),
+        torch.where(freeze_mask, tid, unpack_tid(state[3])),
+    )
+
+
+def _halo_round(ext, dx: float, stride: int, scale: int, offsets, phase):
+    """One Jacobi round of a block from its round-start state `ext`,
+    extended by `stride` cells on each side of j and k with its
+    neighbours' cells (FAR beyond the grid): `phase` (kernel K3 on CUDA)
+    on the extended block, its positions shifted to global level indices,
+    the block's cells cut back out. Every cell reads the donors that the
+    round over the whole level reads, so it equals that round bit for bit
+    (``sdfgenfast_tpu.ops.vdt._halo_round``)."""
+    s = int(stride)
+    _, _, nje, nke = ext.shape
+    off = (int(offsets[0]), int(offsets[1]) - s, int(offsets[2]) - s)
+    out = phase(ext.contiguous(), dx, (s,), scale, pos_offset=off)
+    return out[:, :, s:nje - s, s:nke - s].contiguous()
+
+
 def vdt_far_field(
     cpx, cpy, cpz,  # (ni, nj, nk) f32 seed closest points (grid-local), FAR empty
     tid,  # (ni, nj, nk) int32 seed ids, -1 empty
@@ -185,17 +222,36 @@ def vdt_far_field(
     *,
     freeze_mask=None,  # bool: cells whose phi_seed is provably exact
     jacobi: bool = False,  # True: every round Jacobi (the capped ladder)
-    phase,  # (state, dx, strides, scale) -> state: vdt_kernel.round_phase
+    phase,  # (state, dx, strides, scale, pos_offset=) -> state: round_phase
+    ijk_offset=None,  # with halo_extend: each block's global (i, j, k)
+    halo_extend=None,  # (states, s) -> the states extended by s in j and k
 ):
-    """Closest-point jump flooding over the whole grid, one round per
-    stride (``sdfgenfast_tpu.ops.vdt.vdt_far_field`` on one device).
+    """Closest-point jump flooding, one round per stride
+    (``sdfgenfast_tpu.ops.vdt.vdt_far_field``).
 
-    With `jacobi`, every round is a Jacobi round through `phase` (kernel K3
-    on CUDA). Otherwise strides of 8 and more take :func:`_gs_axes_round`,
-    stride 1 :func:`_gs_round` and strides 2 and 4 `phase`. Returns (phi,
-    tid): cells in `freeze_mask` (default: every seeded cell) keep their
-    seed values, every other cell takes min(|p - cp|, phi_seed) and the
-    propagated id."""
+    One grid: with `jacobi`, every round is a Jacobi round through `phase`
+    (kernel K3 on CUDA). Otherwise strides of 8 and more take
+    :func:`_gs_axes_round`, stride 1 :func:`_gs_round` and strides 2 and
+    4 `phase`. Returns (phi, tid): cells in `freeze_mask` (default: every
+    seeded cell) keep their seed values, every other cell takes
+    min(|p - cp|, phi_seed) and the propagated id.
+
+    Blocks of a grid (the sharded capped ladder): with `halo_extend`, the
+    tensor arguments (`freeze_mask` given) are sequences with one block
+    each, `ijk_offset` the blocks' offsets, and every round is a Jacobi
+    round of every block through :func:`_halo_round`, from
+    ``halo_extend(states, stride)``: the round-start states of all blocks,
+    each extended with its neighbours' cells. The blocks advance in
+    lockstep, so each round equals the round over the whole grid. Returns
+    a list of (phi, tid), one per block."""
+    if halo_extend is not None:
+        states = [seed_state(*a, dx, o) for a, o in zip(
+            zip(cpx, cpy, cpz, tid), ijk_offset)]
+        for stride in strides:
+            states = [_halo_round(e, dx, stride, 1, o, phase)
+                      for e, o in zip(halo_extend(states, stride), ijk_offset)]
+        return [finish_state(*a) for a in zip(states, tid, phi_seed,
+                                              freeze_mask)]
     ni, nj, nk = cpx.shape
     px, py, pz = _level_pos_axes((ni, nj, nk), dx, 1, cpx.device)
     state = pack_state(cpx, cpy, cpz, tid, _dist2(px, py, pz, cpx, cpy, cpz))
@@ -206,15 +262,9 @@ def vdt_far_field(
             state = _gs_round(state, px, py, pz, stride)
         else:
             state = phase(state, dx, (stride,), 1)
-
-    phi = sqrt_f32(torch.clamp(state[4], min=0.0))
-    out_tid = unpack_tid(state[3])
     if freeze_mask is None:
         freeze_mask = tid >= 0
-    return (
-        torch.where(freeze_mask, phi_seed, torch.minimum(phi, phi_seed)),
-        torch.where(freeze_mask, tid, out_tid),
-    )
+    return finish_state(state, tid, phi_seed, freeze_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -244,36 +294,47 @@ def pyramid_level_shapes(grid_shape):
     return shapes
 
 
-def _axis_pos(n, scale, dx, device):
-    """f32(index * scale) * dx along one axis (exact fine-grid positions)."""
-    return (torch.arange(n, dtype=torch.int32, device=device) * scale
-            ).to(torch.float32) * dx
+def _axis_pos(n, scale, dx, device, offset: int = 0):
+    """f32((index + offset) * scale) * dx along one axis (exact fine-grid
+    positions; `offset` the global level index of local index 0, which may
+    be negative). The sum and product are int32, as in the JAX package."""
+    idx = torch.arange(n, dtype=torch.int32, device=device) + int(offset)
+    return (idx * scale).to(torch.float32) * dx
 
 
-def _level_pos_axes(shape, dx, scale: int, device):
+def _level_pos_axes(shape, dx, scale: int, device, offsets=None):
     """World coords of a pyramid level: level cell I sits at fine index
-    I * scale, broadcastable as (ni,1,1), (1,nj,1), (1,1,nk)."""
+    I * scale, broadcastable as (ni,1,1), (1,nj,1), (1,1,nk). `offsets`
+    shifts local level indices to global ones (a shard's block)."""
     ni, nj, nk = shape
-    return (_axis_pos(ni, scale, dx, device)[:, None, None],
-            _axis_pos(nj, scale, dx, device)[None, :, None],
-            _axis_pos(nk, scale, dx, device)[None, None, :])
+    oi, oj, ok = (0, 0, 0) if offsets is None else offsets
+    return (_axis_pos(ni, scale, dx, device, oi)[:, None, None],
+            _axis_pos(nj, scale, dx, device, oj)[None, :, None],
+            _axis_pos(nk, scale, dx, device, ok)[None, None, :])
 
 
-def _downsample2(state, dx, fine_scale):
+def _downsample2(state, dx, fine_scale, offsets=None):
     """Factor-2 min-downsample as three axis-wise pairwise tournaments (a
     GREEDY approximation of the 8-child argmin; every surviving cp is still
     a real surface point). Each pass re-scores both children against the
-    position that is coarse in the axes merged so far and fine in the rest."""
+    position that is coarse in the axes merged so far and fine in the rest.
+
+    `offsets`: the block's global index offsets at the fine level. They
+    must be even on every axis the block is cut from (shard blocks are
+    multiples of 8), so that the local pairing is the global one and the
+    result equals the same cells of the downsampled grid bit for bit."""
     dev = state.device
     _, ni, nj, nk = state.shape
     if ni % 2 or nj % 2 or nk % 2:
         state = F.pad(state, (0, nk % 2, 0, nj % 2, 0, ni % 2),
                       value=float(FAR))
+    offs = (0, 0, 0) if offsets is None else tuple(int(o) for o in offsets)
 
     def pos(n, scale, which):
         shape = [1, 1, 1]
         shape[which] = n
-        return _axis_pos(n, scale, dx, dev).reshape(shape)
+        off = offs[which] // 2 if scale == 2 * fine_scale else offs[which]
+        return _axis_pos(n, scale, dx, dev, off).reshape(shape)
 
     def pair_merge(a, b, p):
         # keep the child whose cp is closer to the even-child position
@@ -348,12 +409,7 @@ def vdt_pyramid_far_field(
             PYRAMID_LEVEL_ROUNDS + (1,) * extra_polish)
         s = phase(s, dx, rounds, scale_l)
 
-    phi = sqrt_f32(torch.clamp(s[4], min=0.0))
-    out_tid = unpack_tid(s[3])
-    return (
-        torch.where(freeze_mask, phi_seed, torch.minimum(phi, phi_seed)),
-        torch.where(freeze_mask, tid, out_tid),
-    )
+    return finish_state(s, tid, phi_seed, freeze_mask)
 
 
 def chamfer_steps(dx: float):

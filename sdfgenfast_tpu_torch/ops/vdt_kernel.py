@@ -42,22 +42,36 @@ def _ping_pong(x, n: int, launch):
     return x if bufs else x.clone()
 
 
-def round_phase_reference(state, dx: float, strides, scale: int = 1):
+def _offset(pos_offset):
+    off = (0, 0, 0) if pos_offset is None else tuple(int(v) for v in pos_offset)
+    if len(off) != 3:
+        raise ValueError(f"pos_offset must hold three ints, got {pos_offset}")
+    return off
+
+
+def round_phase_reference(state, dx: float, strides, scale: int = 1,
+                          pos_offset=None):
     """Plain-torch twin of :func:`round_phase`: Jacobi rounds at a pyramid
-    level whose cell I sits at fine position f32(I * scale) * dx."""
-    pos = _level_pos_axes(state.shape[1:], dx, scale, state.device)
+    level whose cell I sits at fine position f32((I + pos_offset) * scale)
+    * dx."""
+    pos = _level_pos_axes(state.shape[1:], dx, scale, state.device,
+                          _offset(pos_offset))
     for s in strides:
         state = _jacobi_round(state, *pos, s)
     return state
 
 
-def round_phase(state, dx: float, strides, scale: int = 1):
+def round_phase(state, dx: float, strides, scale: int = 1, pos_offset=None):
     """Run Jacobi rounds (one per stride, in order) over a (5, ni, nj, nk)
-    float32 state. CUDA: one K3 launch per stride into ping-pong buffers (the
-    input is not modified). CPU: :func:`round_phase_reference`."""
+    float32 state. `pos_offset` ((i, j, k) ints, negative allowed; None =
+    zeros) is the global level index of local cell (0, 0, 0): a shard's
+    halo-extended block scores its donors at global positions. CUDA: one
+    K3 launch per stride into ping-pong buffers (the input is not
+    modified). CPU: :func:`round_phase_reference`."""
     _check_state(state)
+    off = _offset(pos_offset)
     if state.device.type == "cpu":
-        return round_phase_reference(state, dx, strides, scale)
+        return round_phase_reference(state, dx, strides, scale, off)
     if state.device.type != "cuda":
         raise ValueError(f"round_phase: unsupported device {state.device}")
     strides = [int(s) for s in strides]
@@ -71,7 +85,8 @@ def round_phase(state, dx: float, strides, scale: int = 1):
         with torch.cuda.device(state.device):
             build.check(lib.sdf_vdt_round(src.data_ptr(), dst.data_ptr(), ni,
                                           nj, nk, strides[i], int(scale),
-                                          float(dx), stream), "sdf_vdt_round")
+                                          *off, float(dx), stream),
+                        "sdf_vdt_round")
         round_phase.launches += 1
 
     return _ping_pong(state, len(strides), launch)

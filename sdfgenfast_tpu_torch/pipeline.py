@@ -52,7 +52,8 @@ Every step takes an explicit ``torch.device``. CUDA tensors go through the
 hand-written kernels; CPU tensors through their plain-torch twins. The
 modules with no Pallas counterpart (the tile evaluator, the Gauss-Seidel
 rounds, ``band_distance_field``, the sweeps) are plain torch on either
-device. Multi-GPU (``device_mesh``) is not ported.
+device. The same steps over a (j, k) mesh of devices are
+``parallel/sharded.py``.
 """
 
 from __future__ import annotations
@@ -405,35 +406,42 @@ def dense_sign_core(verts, tris, parity_data, origin, dx: float, *,
     return torch.where(parity, -phi, phi), tid
 
 
-def _band_k2(tri_local, band, dx: float, *, grid_shape, tiles_dim):
+def _band_k2(tri_local, band, dx: float, *, grid_shape, tiles_dim, **coord):
     """The band of 8^3 tiles from K2 over the CSR layout: dense (phi0,
-    tid0, (cpx, cpy, cpz))."""
+    tid0, (cpx, cpy, cpz)). A shard's block passes K2's coordinate ids
+    (`coord`: ``band_rows``'s coord_* arguments)."""
     T = int(np.prod(tiles_dim))
     rows = band_kernel.band_rows(
         tri_local.reshape(-1, 9).contiguous(), band["pair"], band["ids"],
         band["off"], band["cnt"], dx, tiles_dim=tiles_dim,
-        grid_shape=grid_shape)
+        grid_shape=grid_shape, **coord)
     phi0, tid0, *cps = (tiled_ops.untile_rows(r[:T], (8, 8, 8), tiles_dim,
                                               grid_shape) for r in rows)
     return phi0, tid0, tuple(cps)
 
 
 def _band_tiles(tri_verts, band, origin, dx: float, *, grid_shape,
-                tile_shape, tiles_dim, chunk: int):
+                tile_shape, tiles_dim, chunk: int, ijk_offset=None,
+                upper=None):
     """The band of any tile shape from the tile evaluator over the padded
     (A, K) candidate matrices (the XLA branch of
-    ``sdfgenfast_tpu.pipeline._exact_core``): dense (phi0, tid0, cps)."""
+    ``sdfgenfast_tpu.pipeline._exact_core``): dense (phi0, tid0, cps). A
+    shard's block passes its `ijk_offset` and the global grid's `upper`
+    (default: `grid_shape`'s)."""
     ids = band["active_ids"]
     kw = dict(tile_shape=tile_shape, tiles_dim=tiles_dim)
+    if upper is None:
+        upper = band_kernel._upper(grid_shape, dx)
     phi_rows, tid_rows = tiled_ops.tile_candidate_rows(
         tri_verts, ids, band["cand"], band["cand_valid"], origin, dx,
-        grid_shape=grid_shape, chunk=chunk, **kw)
+        grid_shape=grid_shape, chunk=chunk, ijk_offset=ijk_offset,
+        upper_override=upper, **kw)
     table = tiled_ops.tri_affine_table(tri_verts - origin)
     cp_rows = tiled_ops.closest_point_rows(table, ids, tid_rows, dx,
-                                           chunk=chunk, **kw)
-    phi0, tid0 = tiled_ops.scatter_untile(
-        phi_rows, tid_rows, ids, band_kernel._upper(grid_shape, dx),
-        grid_shape=grid_shape, **kw)
+                                           chunk=chunk, ijk_offset=ijk_offset,
+                                           **kw)
+    phi0, tid0 = tiled_ops.scatter_untile(phi_rows, tid_rows, ids, upper,
+                                          grid_shape=grid_shape, **kw)
     cps = tuple(tiled_ops.scatter_rows(r, ids, float(vdt_ops.FAR),
                                        grid_shape=grid_shape, **kw)
                 for r in cp_rows)

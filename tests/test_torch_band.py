@@ -273,9 +273,13 @@ def _retire_cells(cf, x, y, z):
     return d2, dd
 
 
-def _kernel_rows(tri9, pair, ids, off, cnt, dx, tiles_dim, grid_shape):
+def _kernel_rows(tri9, pair, ids, off, cnt, dx, tiles_dim, grid_shape,
+                 coord=None):
     """band_rows_kernel as the CUDA source addresses it, on the CPU: block a
-    takes tile ids[a]; thread r owns the cells (r // 8, r % 8, 0..7) of the
+    takes tile ids[a] (returns at once for a padded slot, ids[a] >= T) and
+    the coordinates of tile cids[a] of the (cids, ctiles_dim, cgrid_shape)
+    of `coord` (default: ids, tiles_dim, grid_shape), whose grid also gives
+    `upper`; thread r owns the cells (r // 8, r % 8, 0..7) of the
     tile, with the row halves at its (x, y) and the lane halves at its 8
     z's; the segment streams through two KCHUNK-candidate buffers (chunk ch
     into buffer ch & 1, real rows only: a sentinel slot keeps whatever the
@@ -285,11 +289,13 @@ def _kernel_rows(tri9, pair, ids, off, cnt, dx, tiles_dim, grid_shape):
     coef = band_kernel.band_coefs(tri9)
     M, P = coef.shape[0], pair.shape[0]
     T = int(np.prod(tiles_dim))
-    _, ntj, ntk = tiles_dim
-    upper = band_kernel._upper(grid_shape, dx)
+    cids, (_, ntj, ntk), cgrid = coord or (ids, tiles_dim, grid_shape)
+    upper = band_kernel._upper(cgrid, dx)
     rows = band_kernel._filled_rows(T, upper, torch.device("cpu"))
+    run = ids < T
+    ids, off, cnt, cids = ids[run], off[run], cnt[run], cids[run]
     A = ids.shape[0]
-    t = ids.to(torch.int64)
+    t = cids.to(torch.int64)
     r = torch.arange(THREADS)
     x = ((t // (ntk * ntj))[:, None] * 8 + r // 8).to(torch.float32) * dx
     y = (((t // ntk) % ntj)[:, None] * 8 + r % 8).to(torch.float32) * dx
@@ -330,7 +336,7 @@ def _kernel_rows(tri9, pair, ids, off, cnt, dx, tiles_dim, grid_shape):
              for p, d in zip((X.expand_as(best), Y.expand_as(best),
                               Z.expand_as(best)), dd)))
     for dst, src in zip(rows, out):  # cell r * 8 + c of the tile's row
-        dst[t] = src.reshape(A, THREADS * CELLS)
+        dst[ids.to(torch.int64)] = src.reshape(A, THREADS * CELLS)
     return rows
 
 
@@ -360,6 +366,46 @@ def test_kernel_walk_bit_equal_to_reference(band_setup, case):
                                       w.numpy().view(np.int32), err_msg=name)
     assert (want[1][ids.long()[:-1] if case != "binned" else ids.long()]
             >= 0).any()
+
+
+def test_kernel_walk_with_coordinate_ids_bit_equal_to_reference(band_setup):
+    """A block of 4 x 4 tiles in (j, k) cut from the binned grid, as a
+    shard sees it: local row ids, global coordinate ids, the global grid's
+    upper bound, and a padded slot (local sentinel, global sentinel). The
+    transcription equals band_rows_reference bit for bit on every row, and
+    the block's rows equal the global rows of their tiles."""
+    tri9, pair, ids, off, cnt, dx = band_setup["args"]
+    kw = band_setup["kw"]
+    nti, ntj, ntk = kw["tiles_dim"]
+    local_dim = (nti, 4, 4)
+    g = ids.long()
+    ti, tj, tk = g // (ntj * ntk), (g // ntk) % ntj, g % ntk
+    sel = (g < nti * ntj * ntk) & (tj >= 2) & (tj < 6) & (tk >= 3) & (tk < 7)
+    assert sel.sum() > 0
+    T = int(np.prod(local_dim))
+    lids = ((ti * 4 + tj - 2) * 4 + tk - 3)[sel].to(torch.int32)
+    pad = torch.tensor([T], dtype=torch.int32)
+    blk_ids = torch.cat([lids, pad])
+    cids = torch.cat([ids[sel], torch.tensor([nti * ntj * ntk],
+                                             dtype=torch.int32)])
+    blk_off = torch.cat([off[sel], off[:1]])
+    blk_cnt = torch.cat([cnt[sel], torch.zeros(1, dtype=torch.int32)])
+    block = (kw["grid_shape"][0], 32, 32)
+    coord = dict(coord_ids=cids, coord_tiles_dim=kw["tiles_dim"],
+                 coord_grid_shape=kw["grid_shape"])
+    want = band_kernel.band_rows_reference(
+        tri9, pair, blk_ids, blk_off, blk_cnt, dx, tiles_dim=local_dim,
+        grid_shape=block, **coord)
+    got = _kernel_rows(tri9, pair, blk_ids, blk_off, blk_cnt, dx, local_dim,
+                       block, coord=(cids, kw["tiles_dim"], kw["grid_shape"]))
+    full = band_setup["torch_full"]
+    for name, a, w, f in zip(("phi", "tid", "cpx", "cpy", "cpz"), got, want,
+                             full):
+        np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                      w.numpy().view(np.int32), err_msg=name)
+        np.testing.assert_array_equal(
+            w[lids.long()].numpy().view(np.int32),
+            f[ids[sel].long()].numpy().view(np.int32), err_msg=name)
 
 
 def test_retirement_closest_point_equals_tracked(band_setup):

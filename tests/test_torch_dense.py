@@ -438,7 +438,7 @@ def test_generate_sdf_batch_errors():
     with pytest.raises(TypeError):
         P.generate_sdf_batch([(box.verts[:, :2], box.tris)], *args,
                              backend="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="device_mesh"):
         P.generate_sdf_batch(ok, *args, backend="cpu", device_mesh=object())
     with pytest.raises(ValueError):
         P.generate_sdf_batch(ok, *args, backend="tpu")

@@ -425,9 +425,11 @@ def test_sdf_generator_commit_and_refresh():
 
 
 def test_sdf_generator_has_no_device_mesh_yet():
+    # a device mesh is a parallel.DeviceMesh (tests/test_torch_sharded.py
+    # runs one); anything else is refused
     m = P.icosphere(1)
     g = P.GridSpec((-1.3, -1.3, -1.3), 2.6 / 16, (16, 16, 16))
-    with pytest.raises(NotImplementedError, match="device_mesh"):
+    with pytest.raises(TypeError, match="device_mesh"):
         SDFGenerator(m, g, device="cpu", device_mesh=object())
     with pytest.raises(TypeError):
         SDFGenerator(m, g)  # the device is explicit

@@ -204,9 +204,10 @@ WARPS, TILE_K, AHEAD = 8, 32, 2  # vdt_round.cu: kWarps, kTileK, kAhead
 SLOTS = AHEAD + 3  # kSlots
 
 
-def _ring_walk_round(state, stride, scale, seg):
+def _ring_walk_round(state, stride, scale, seg, offset=(0, 0, 0)):
     """One round as csrc/vdt_round.cu addresses it, for segments of `seg`
-    cells along i. Block (bz, by, bx) owns the lattice cells i = ri + (qa0 +
+    cells along i, cell (i, j, k) at the position of level cell
+    (i, j, k) + `offset`. Block (bz, by, bx) owns the lattice cells i = ri + (qa0 +
     a) * stride (a < na), j = rj + (qb0 + b) * stride (b < TILE_B: 16 rows
     where a residue class has 16 or more, else 8), k = k0 + kk, and walks
     the planes la = 0 .. na + 1 (lattice row qa0 - 1 + la) through a ring of
@@ -270,6 +271,8 @@ def _ring_walk_round(state, stride, scale, seg):
             return xyz
         return xyz, torch.where(ok, bits[3][at], -1)
 
+    oi, oj, ok = offset
+
     def pos(idx):
         return (idx * scale).to(torch.float32) * DX
 
@@ -279,7 +282,7 @@ def _ring_walk_round(state, stride, scale, seg):
     vb = [(j + ob * s >= 0) & (j + ob * s < nj) for ob in (-1, 0, 1)]
     vc = [(k + oc * s >= 0) & (k + oc * s < nk) for oc in (-1, 0, 1)]
     jc, kc = j.clamp(max=nj - 1), k.clamp(max=nk - 1)
-    py, pz = pos(j), pos(k)
+    py, pz = pos(j + oj), pos(k + ok)
     shape = torch.broadcast_shapes((len(bz), 1, 1, 1, 1), live.shape)
 
     # per-element block and thread indices, for the winners' gathers
@@ -312,7 +315,7 @@ def _ring_walk_round(state, stride, scale, seg):
                     a = la - 2 + q
                     if a < 0 or (oa, ob, oc) == (0, 0, 0):
                         continue
-                    ex = pos(gi + (1 - q) * -s) - c[0]
+                    ex = pos(gi + (1 - q) * -s + oi) - c[0]
                     cd2 = ex * ex + ey2 + ez2
                     use = donor & has[q][Z]
                     # a donor that a stored cell reads is always staged
@@ -363,3 +366,19 @@ def test_ring_walk_bit_equal_to_jacobi_round(shape, stride):
         got = _ring_walk_round(st, stride, scale, seg)
         np.testing.assert_array_equal(got, want.view(np.int32),
                                       err_msg=f"scale {scale}, seg {seg}")
+
+
+@pytest.mark.parametrize("stride", [1, 3, 8, 64])
+def test_ring_walk_with_offset_bit_equal_to_twin(stride):
+    """The kernel's position offset (a shard's halo-extended block: the
+    global level index of local cell 0, negative on the first blocks) in
+    the transcribed walk equals round_phase's twin with that pos_offset."""
+    shape = (23, 40, 70)
+    st = _random_state(shape, seed=3 * stride, n_seed=1500)
+    for scale, seg, off in ((1, 2, (0, -stride, -stride)),
+                            (2, 32, (5, 16 - stride, 40 - stride))):
+        want = vdt_kernel.round_phase(torch.from_numpy(st), float(DX),
+                                      (stride,), scale, pos_offset=off)
+        got = _ring_walk_round(st, stride, scale, seg, off)
+        np.testing.assert_array_equal(got, want.numpy().view(np.int32),
+                                      err_msg=f"scale {scale}, offset {off}")
