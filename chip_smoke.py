@@ -73,13 +73,34 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      the schedule gives a shard; ``SDFGenerator(device_mesh=...)`` on
      sphere82k and box36 (loss bit-equal, gradient within 1e-4, two runs
      bit-equal); the sharded walls beside the single-device ones, the halo
-     exchange's device time and peak memory.
+     exchange's device time and peak memory;
+  9. the sharded sweep modes and the multi-process path: (a)
+     ``far_field="eikonal"`` and ``"propagate"`` through ``sharded_sdf`` on
+     sphere82k at 256^3 on (2, 2) x cuda:0, phi and ids bit-equal to the
+     single-device run with the same pass count, R1 once a shard and
+     K1-K4 never; on icosphere(4) at 64^3 on (1, 4), the card bit-equal to
+     the CPU twins; a sharded train_step in each mode (gradient within
+     1e-4); (b) two processes of this script (``--multihost-worker``)
+     joined by gloo, two shards each of a (2, 2) mesh on cuda:0: phase 8's
+     cases, eikonal and a ``generate_sdf_batch`` of two meshes through
+     ``parallel.multihost``, each process's grid bit-equal to the
+     single-process run, its launches twice a shard's schedule, 512^3
+     against its golden; the multi-process walls beside the single-process
+     sharded ones, the exchange's wall and each process's peak memory. A
+     worker that fails or passes its deadline fails the smoke.
+
+``python3 chip_smoke.py --four-cards`` (not run by default; four visible
+GPUs) runs phases 1-2, then phase 9b's cases on ``["cuda:0", ...,
+"cuda:3"]`` in one process and in four NCCL processes (one card each),
+each bit-equal to the one-card run on ``["cuda:0"] * 4``.
 
 Prints one JSON line of per-kernel results, then the card line, then, as the
 last line, ``{"ok": true, "device": {...}}``. Exits non-zero on any failure.
 Imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
+import hashlib
 import json
 import os
 import re
@@ -135,6 +156,13 @@ def queued_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def digest(x):
+    """The SHA-256 of a grid's bytes (a tensor or an array): two runs
+    compared without moving the grids between processes."""
+    a = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
 def bits(torch, x):
@@ -2714,7 +2742,8 @@ def check_offset_kernels(torch, device, mesh, grid):
         for scale in (1, 2):
             for s in (1, 2, 3, 4, 8):
                 full = vdt_kernel.round_phase(st, dx, (s,), scale)
-                ext = sh._state_halo_extend(blocks, s)
+                ext = sh._state_halo_extend(
+                    sh.LocalTransport(np.full(dims, device)), blocks, s)
                 for a, b in np.ndindex(*dims):
                     off = (0, a * bj - s, b * bk - s)
                     got = vdt_kernel.round_phase(ext[a][b], dx, (s,), scale,
@@ -2805,13 +2834,14 @@ def sharded_phase(torch, device, grids, cases, box, box_grid):
     ``["cuda:0"] * 4``: phi and ids bit-equal to the single-device card run
     (``make_level_set3``), each counter at 4 x the schedule's count for a
     shard (``shard_schedule``), the 512^3 run within its golden's bars.
-    Returns {label: {mesh shape: launches}}."""
+    Returns ({label: {mesh shape: launches}}, {label: the (2, 2) run's
+    :func:`digest`})."""
     from sdfgenfast_tpu_torch.parallel import (bin_mesh_sharded,
                                                make_device_mesh, sharded_sdf)
     from sdfgenfast_tpu_torch.pipeline import SDFConfig, make_level_set3, use_dense
 
     meshes = {s: make_device_mesh([device] * 4, s) for s in SHARD_SHAPES}
-    out = {}
+    out, digests = {}, {}
     for label, mesh, grid, knobs, shapes, golden in sharded_cases(
             grids, cases, box, box_grid):
         cfg = SDFConfig(**knobs)
@@ -2842,10 +2872,12 @@ def sharded_phase(torch, device, grids, cases, box, box_grid):
                                    stride, grid)
                 far = f"; golden bars met, far field {far:.4f} dx"
             out.setdefault(label, {})[f"{shape[0]}x{shape[1]}"] = launches
+            if shape == (2, 2):
+                digests[label] = digest(phi)
             print(f"sharded {label} on {shape} x cuda:0: phi and ids "
                   f"bit-equal to the single-device run; launches a shard "
                   f"{per_shard} (x 4 = counted){far}", flush=True)
-    return out
+    return out, digests
 
 
 def sharded_steps(torch, device, grids, box, box_grid):
@@ -2910,7 +2942,8 @@ def sharded_times(torch, device, card, grids, box, box_grid):
     """Wall per call of ``generate_sdf_batch`` (one mesh: host binning,
     device, copy back) with ``device_mesh`` ((2, 2) x cuda:0) against the
     single device, median of 3 warm calls; the halo exchange's device time
-    in one sharded call (CUDA events around every ``sharded._extend``);
+    in one sharded call (CUDA events around every
+    ``sharded.LocalTransport.extend``);
     peak device memory of one call each. One card runs the four shards one
     after another: no speed-up is possible or claimed."""
     from sdfgenfast_tpu_torch import generate_sdf_batch
@@ -2938,7 +2971,7 @@ def sharded_times(torch, device, card, grids, box, box_grid):
         sb = bin_mesh_sharded(mesh, grid, (2, 2))
         binned = bin_mesh(mesh, grid)
         events = []
-        extend = sh._extend
+        extend = sh.LocalTransport.extend
 
         def timed(*a, **k):
             start = torch.cuda.Event(enable_timing=True)
@@ -2949,12 +2982,12 @@ def sharded_times(torch, device, card, grids, box, box_grid):
             events.append((start, end))
             return r
 
-        sh._extend = timed
+        sh.LocalTransport.extend = timed
         try:
             sharded_sdf(sb, dm, verts=mesh.verts)
             torch.cuda.synchronize()
         finally:
-            sh._extend = extend
+            sh.LocalTransport.extend = extend
         halo_ms = sum(s.elapsed_time(e) for s, e in events)
         peaks = {}
         for name, fn in (("single", lambda: make_level_set3(
@@ -2977,17 +3010,490 @@ def sharded_times(torch, device, card, grids, box, box_grid):
     return out
 
 
+SWEEP_MODES = ("eikonal", "propagate")
+
+
+@contextlib.contextmanager
+def pass_counts():
+    """{"single": passes, "sharded": passes} of the plane scans run inside
+    the block (single-device and sharded)."""
+    from sdfgenfast_tpu_torch.ops import sweep
+    from sdfgenfast_tpu_torch.parallel import sharded as sh
+
+    seen = {}
+    real = (sweep.propagate_closest_triangles, sh._sharded_propagate)
+
+    def spy(key, fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            seen[key] = out[2]
+            return out
+        return run
+
+    sweep.propagate_closest_triangles = spy("single", real[0])
+    sh._sharded_propagate = spy("sharded", real[1])
+    try:
+        yield seen
+    finally:
+        sweep.propagate_closest_triangles, sh._sharded_propagate = real
+
+
+def sweep_launches():
+    """The launches of a sharded sweep-mode call over four shards: R1 once
+    a shard, no other kernel."""
+    want = dict.fromkeys((c.__name__ for c in shard_counters()), 0)
+    want["recompute_forward"] = 4
+    return want
+
+
+def sharded_sweep_phase(torch, device, grids):
+    """``far_field="eikonal"`` and ``"propagate"`` through
+    ``parallel.sharded_sdf`` on ``["cuda:0"] * 4``: sphere82k at 256^3 on
+    (2, 2), phi and ids bit-equal to the single-device card run, the same
+    propagate pass count, R1 launched once a shard and K1-K4 never; then
+    icosphere(4) at 64^3 on (1, 4), the card bit-equal to the CPU twins'
+    sharded run. Returns {mode: {launches, passes, walls, digest}}."""
+    from sdfgenfast_tpu_torch.grid import sizing_mode2a_proportional
+    from sdfgenfast_tpu_torch.mesh import icosphere
+    from sdfgenfast_tpu_torch.parallel import (bin_mesh_sharded,
+                                               make_device_mesh, sharded_sdf)
+    from sdfgenfast_tpu_torch.pipeline import SDFConfig, make_level_set3
+
+    mesh, grid = grids[256]
+    dm = make_device_mesh([device] * 4, (2, 2))
+    out = {}
+    for mode in SWEEP_MODES:
+        cfg = SDFConfig(far_field=mode)
+        with pass_counts() as seen:
+            t0 = time.perf_counter()
+            want_phi, want_tid = make_level_set3(mesh, grid, cfg,
+                                                 device=device,
+                                                 return_tid=True)
+            torch.cuda.synchronize()
+            single_s = time.perf_counter() - t0
+            sb = bin_mesh_sharded(mesh, grid, (2, 2), cfg)
+            t0 = time.perf_counter()
+            (phi, tid), launches = counted(lambda: sharded_sdf(
+                sb, dm, verts=mesh.verts, return_tid=True))
+            torch.cuda.synchronize()
+            sharded_s = time.perf_counter() - t0
+        bad = (int((bits(torch, phi) != bits(torch, want_phi)).sum()),
+               int((tid != want_tid).sum()))
+        if bad != (0, 0):
+            raise AssertionError(f"sharded {mode} sphere82k 256^3: {bad[0]} "
+                                 f"phi and {bad[1]} id cells differ from the "
+                                 "single-device run")
+        if launches != sweep_launches():
+            raise AssertionError(f"sharded {mode}: launches {launches}, "
+                                 f"want {sweep_launches()}")
+        if seen.get("sharded") != seen.get("single"):
+            raise AssertionError(f"sharded {mode}: {seen.get('sharded')} "
+                                 f"passes, the single device "
+                                 f"{seen.get('single')}")
+        out[mode] = dict(launches=launches, passes=seen.get("single"),
+                         single_s=single_s, sharded_s=sharded_s,
+                         digest=digest(phi))
+        passes = (f", {seen['single']} passes on both"
+                  if mode == "propagate" else "")
+        print(f"sharded {mode} sphere82k 256^3 on (2, 2) x cuda:0: phi and "
+              f"ids bit-equal to the single-device run{passes}; launches "
+              f"{launches}; {sharded_s:.1f} s against {single_s:.1f} s on "
+              "one device (first call)", flush=True)
+
+    ico = icosphere(4, radius=1.0, center=(0.03, -0.02, 0.01))
+    g64 = sizing_mode2a_proportional(*ico.bounds(), 64, 1)
+    for mode in SWEEP_MODES:
+        sb = bin_mesh_sharded(ico, g64, (1, 4), SDFConfig(far_field=mode))
+        with pass_counts() as seen:
+            card = sharded_sdf(sb, make_device_mesh([device] * 4, (1, 4)),
+                               verts=ico.verts, return_tid=True)
+            card_passes = seen.get("sharded")
+            cpu = sharded_sdf(sb, make_device_mesh(["cpu"] * 4, (1, 4)),
+                              verts=ico.verts, return_tid=True)
+        bad = (int((bits(torch, card[0].cpu()) != bits(torch, cpu[0])).sum()),
+               int((card[1].cpu() != cpu[1]).sum()))
+        if bad != (0, 0) or card_passes != seen.get("sharded"):
+            raise AssertionError(f"sharded {mode} icosphere(4) 64^3 (1, 4): "
+                                 f"card vs CPU twins {bad} cells differ, "
+                                 f"passes {card_passes} vs "
+                                 f"{seen.get('sharded')}")
+        print(f"sharded {mode} icosphere(4) 64^3 on (1, 4): card bit-equal "
+              "to the CPU twins (phi and ids)", flush=True)
+    return out
+
+
+def sharded_sweep_steps(torch, device):
+    """``SDFGenerator(device_mesh=...)`` in eikonal and propagate mode on
+    icosphere(4) at 64^3 ((2, 2) x cuda:0) against the single device: the
+    loss bit-equal, the vertex gradient within 1e-4 of its largest
+    component, R1 and R1b once a shard."""
+    from sdfgenfast_tpu_torch.grid import sizing_mode2a_proportional
+    from sdfgenfast_tpu_torch.mesh import icosphere
+    from sdfgenfast_tpu_torch.models import SDFGenerator
+    from sdfgenfast_tpu_torch.parallel import make_device_mesh
+    from sdfgenfast_tpu_torch.pipeline import SDFConfig
+
+    mesh = icosphere(4, radius=1.0, center=(0.03, -0.02, 0.01))
+    grid = sizing_mode2a_proportional(*mesh.bounds(), 64, 1)
+    dm = make_device_mesh([device] * 4, (2, 2))
+    out = {}
+    for mode in SWEEP_MODES:
+        cfg = SDFConfig(far_field=mode)
+        single = SDFGenerator(mesh, grid, cfg, device=device)
+        shard = SDFGenerator(mesh, grid, cfg, device_mesh=dm)
+        target = single.forward(single.params * 0.95).detach()
+
+        def grad(model):
+            v = model.params.requires_grad_(True)
+            loss = model.loss(v, target)
+            return loss.detach(), torch.autograd.grad(loss, v)[0]
+
+        l1, g1 = grad(single)
+        (ls, gs), launches = counted(lambda: grad(shard))
+        torch.cuda.synchronize()
+        if not torch.equal(bits(torch, ls), bits(torch, l1)):
+            raise AssertionError(f"sharded {mode} step: loss {float(ls)} != "
+                                 f"{float(l1)}")
+        scale = float(g1.abs().max())
+        err = float((gs - g1).abs().max())
+        if not (scale > 0 and err <= 1e-4 * scale):
+            raise AssertionError(f"sharded {mode} step: gradient max err "
+                                 f"{err:.3e} vs 1e-4 * {scale:.3e}")
+        want = dict(sweep_launches(), recompute_backward=4)
+        if launches != want:
+            raise AssertionError(f"sharded {mode} step: launches {launches}, "
+                                 f"want {want}")
+        out[mode] = {"launches": launches, "grad_err": err / scale}
+        print(f"sharded SDFGenerator {mode} icosphere(4) 64^3 on (2, 2) x "
+              f"cuda:0: loss bit-equal, gradient within {err / scale:.2e} of "
+              f"max|g| = {scale:.3e}, launches {launches}", flush=True)
+    return out
+
+
+def multihost_cases(grids):
+    """(label, mesh, grid, knobs, timed) of the multi-process cases; the
+    labels of phase 8's and 9a's single-process (2, 2) runs."""
+    box, cube = box36_cube()
+    return (
+        ("sphere82k 256^3", *grids[256], {}, True),
+        ("capped hop 8, sphere82k 256^3", *grids[256], {"vdt_max_hop": 8},
+         False),
+        ("device sign, sphere82k 256^3", *grids[256],
+         {"sign_mode": "device"}, False),
+        ("eikonal", *grids[256], {"far_field": "eikonal"}, False),
+        ("sphere82k 512^3", *grids[512], {}, True),
+        ("box36 256^3", box, cube, {}, True),
+    )
+
+
+def batch_meshes(grids):
+    """The two meshes of the multi-process batch on sphere82k's 256^3
+    grid: the sphere and the sphere scaled by 0.8 about its centre."""
+    from sdfgenfast_tpu_torch.mesh import Mesh
+
+    mesh, grid = grids[256]
+    c = mesh.verts.mean(axis=0)
+    small = Mesh((c + 0.8 * (mesh.verts - c)).astype(np.float32), mesh.tris)
+    return [(m.verts, m.tris) for m in (mesh, small)], grid
+
+
+def multihost_worker(rank, world, backend, port, out_path):
+    """One process of the multi-process phase: joins the group, builds the
+    global (2, 2) mesh (gloo: two processes with two shards each on
+    cuda:0; nccl: one shard a process on cuda:{rank}), runs every
+    :func:`multihost_cases` case through ``sharded_sdf_multihost`` and
+    ``fetch_global`` and a ``generate_sdf_batch`` of two meshes, and writes
+    each grid's digest, this process's launches, the call's wall, the
+    exchange's wall (host clock
+    around every halo exchange and all-gather, synchronised before and
+    after) and this process's peak memory to `out_path` (JSON)."""
+    import torch
+
+    from sdfgenfast_tpu_torch import generate_sdf_batch
+    from sdfgenfast_tpu_torch.parallel import bin_mesh_sharded
+    from sdfgenfast_tpu_torch.parallel import multihost as mh
+    from sdfgenfast_tpu_torch.pipeline import SDFConfig
+
+    rank, world = int(rank), int(world)
+    local = (["cuda:0"] * (4 // world) if backend == "gloo"
+             else [f"cuda:{rank}"])
+    torch.cuda.set_device(torch.device(local[0]))
+    mh.initialize(f"tcp://localhost:{port}", world, rank, backend)
+    dm = mh.global_device_mesh(local, (2, 2))
+    exchange = []
+    for name in ("_remote_halos", "all_blocks"):
+        real = getattr(mh.DistributedTransport, name)
+
+        def timed(*a, _real=real, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = _real(*a, **k)
+            torch.cuda.synchronize()
+            exchange.append(time.perf_counter() - t0)
+            return r
+
+        setattr(mh.DistributedTransport, name, timed)
+    grids = sphere_grids()
+    out = {}
+    for label, mesh, grid, knobs, timed_case in multihost_cases(grids):
+        cfg = SDFConfig(**knobs)
+        sb = bin_mesh_sharded(mesh, grid, (2, 2), cfg)
+        exchange.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        blocks, launches = counted(lambda: mh.sharded_sdf_multihost(
+            sb, dm, mesh.verts))
+        phi = mh.assemble_blocks(mh.fetch_global(blocks, dm))
+        call_ms = (time.perf_counter() - t0) * 1e3
+        del blocks
+        r = dict(digest=digest(phi), call_ms=call_ms, launches=launches,
+                 exchange_ms=sum(exchange) * 1e3, exchanges=len(exchange),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if label == "sphere82k 512^3" and rank == 0:
+            _, gold, far_key, stride = GOLDEN_CASES[512]
+            r["far_dx"] = check_golden(phi, os.path.join(GOLDENS, gold),
+                                       far_key, stride, grid)
+        del phi
+        if timed_case:
+            args = ([(mesh.verts, mesh.tris)], grid.origin, grid.dx,
+                    *grid.shape)
+            generate_sdf_batch(*args, device_mesh=dm)
+            t = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                generate_sdf_batch(*args, device_mesh=dm)
+                t.append(time.perf_counter() - t0)
+            r["wall_ms"] = statistics.median(t) * 1e3
+        out[label] = r
+    meshes, grid = batch_meshes(grids)
+    out["batch"] = [digest(p) for p in generate_sdf_batch(
+        meshes, grid.origin, grid.dx, *grid.shape, device_mesh=dm)]
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(world, backend, timeout_s=900):
+    """Start `world` :func:`multihost_worker` processes of this script,
+    wait for all under one deadline (killing every one left when it
+    passes), raise if any failed; returns their results, rank order."""
+    out_dir = os.path.join(ROOT, "build", "multihost")
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    paths = [os.path.join(out_dir, f"{backend}{world}_rank{r}.json")
+             for r in range(world)]
+    logs = [open(p[:-5] + ".log", "w") for p in paths]
+    for p in paths:
+        if os.path.exists(p):
+            os.remove(p)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+         str(r), str(world), backend, str(port), paths[r]],
+        stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0
+              or not os.path.exists(paths[r])]
+    if failed:
+        tails = []
+        for r in failed:
+            with open(paths[r][:-5] + ".log") as fh:
+                tails.append(f"rank {r} (rc {procs[r].returncode}):\n"
+                             + fh.read()[-3000:])
+        raise RuntimeError(f"{backend} workers failed:\n" + "\n".join(tails))
+    results = []
+    for p in paths:
+        with open(p) as fh:
+            results.append(json.load(fh))
+    return results
+
+
+def check_workers(results, refs, label):
+    """Every process's digest of every case equal to the others' and to
+    the single-process run's (`refs`: {case: digest}, "batch": list)."""
+    for case, want in refs.items():
+        got = [r[case] if case == "batch" else r[case]["digest"]
+               for r in results]
+        if any(g != want for g in got):
+            raise AssertionError(f"{label}: {case} differs from the "
+                                 "single-process run (or between processes)")
+
+
+def multihost_phase(torch, device, card, grids, refs, single_walls):
+    """Two processes on the card (gloo, two shards each of a (2, 2) mesh
+    on cuda:0, the CUDA blocks staged through host memory): every
+    :func:`multihost_cases` case and the batch bit-equal to the
+    single-process run on ``["cuda:0"] * 4`` on every process; the
+    multi-process walls beside the single-process sharded ones, the
+    exchange's wall and each process's peak memory."""
+    from sdfgenfast_tpu_torch.pipeline import SDFConfig, use_dense
+
+    torch.cuda.empty_cache()
+    results = run_workers(2, "gloo", timeout_s=420)
+    check_workers(results, refs, "two processes")
+    for label, mesh, grid, knobs, _ in multihost_cases(grids):
+        rs = [r[label] for r in results]
+        cfg = SDFConfig(**knobs)
+        if cfg.far_field == "exact":
+            want = {k: 2 * v for k, v in shard_schedule(
+                cfg, grid.shape, use_dense(cfg, len(mesh.tris))).items()}
+        else:
+            want = {k: v // 2 for k, v in sweep_launches().items()}
+        if any(r["launches"] != want for r in rs):
+            raise AssertionError(f"two processes {label}: launches "
+                                 f"{[r['launches'] for r in rs]}, the "
+                                 f"schedule gives {want} a process")
+        wall = [r.get("wall_ms") for r in rs]
+        single = single_walls.get(label)
+        line = (f"[{card}] 2 processes x 2 shards (gloo) {label}: bit-equal "
+                f"to the single-process run on both, launches a process "
+                f"{want}; call "
+                f"{max(r['call_ms'] for r in rs):.1f} ms, exchange "
+                + " / ".join(f"{r['exchange_ms']:.1f}" for r in rs)
+                + f" ms over {rs[0]['exchanges']} exchanges, peak "
+                + " / ".join(f"{r['peak_gib']:.2f}" for r in rs) + " GiB")
+        if wall[0] is not None:
+            line += (f"; generate_sdf_batch wall {max(wall):.1f} ms against "
+                     f"{single['sharded']:.1f} ms in one process "
+                     f"({single['single']:.1f} on one device)")
+        if "far_dx" in rs[0]:
+            line += f"; golden bars met, far field {rs[0]['far_dx']:.4f} dx"
+        print(line, flush=True)
+    print("2 processes: the batch of two meshes bit-equal to the "
+          "single-process batch on both", flush=True)
+    return results
+
+
+def multihost_refs(torch, device, grids, phase8, phase9):
+    """{case: digest} of the single-process (2, 2) runs the two processes
+    are held to (phase 8's and 9a's), and the batch's."""
+    from sdfgenfast_tpu_torch import generate_sdf_batch
+    from sdfgenfast_tpu_torch.parallel import make_device_mesh
+
+    refs = dict(phase8, eikonal=phase9["eikonal"]["digest"])
+    meshes, grid = batch_meshes(grids)
+    refs["batch"] = [digest(p) for p in generate_sdf_batch(
+        meshes, grid.origin, grid.dx, *grid.shape,
+        device_mesh=make_device_mesh([device] * 4, (2, 2)))]
+    torch.cuda.synchronize()
+    return refs
+
+
+def four_cards():
+    """``--four-cards``: four visible GPUs, one shard each. The
+    single-process path on ``["cuda:0", ..., "cuda:3"]`` and four NCCL
+    processes (one card each), every :func:`multihost_cases` case and the
+    batch bit-equal to the one-card single-process run on
+    ``["cuda:0"] * 4``."""
+    import torch
+
+    from sdfgenfast_tpu_torch import generate_sdf_batch, require_cuda
+    from sdfgenfast_tpu_torch.kernels import build
+    from sdfgenfast_tpu_torch.parallel import (bin_mesh_sharded,
+                                               make_device_mesh, sharded_sdf)
+    from sdfgenfast_tpu_torch.pipeline import SDFConfig
+
+    require_cuda()
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError(f"--four-cards needs four GPUs, "
+                           f"{torch.cuda.device_count()} visible")
+    card = card_line()
+    print(f"card: {card} (x {torch.cuda.device_count()})", flush=True)
+    build.build()
+    build.library()
+    grids = sphere_grids()
+    one = make_device_mesh(["cuda:0"] * 4, (2, 2))
+    four = make_device_mesh([f"cuda:{r}" for r in range(4)], (2, 2))
+    refs = {}
+    for label, mesh, grid, knobs, _ in multihost_cases(grids):
+        sb = bin_mesh_sharded(mesh, grid, (2, 2), SDFConfig(**knobs))
+        refs[label] = digest(sharded_sdf(sb, one, verts=mesh.verts))
+        t0 = time.perf_counter()
+        got = digest(sharded_sdf(sb, four, verts=mesh.verts))
+        ms = (time.perf_counter() - t0) * 1e3
+        if got != refs[label]:
+            raise AssertionError(f"four cards, one process: {label} differs "
+                                 "from the one-card run")
+        print(f"[{card}] one process on cuda:0-3 {label}: bit-equal to the "
+              f"one-card run; {ms:.1f} ms (first call)", flush=True)
+    meshes, grid = batch_meshes(grids)
+    refs["batch"] = [digest(p) for p in generate_sdf_batch(
+        meshes, grid.origin, grid.dx, *grid.shape, device_mesh=one)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    results = run_workers(4, "nccl", timeout_s=420)
+    check_workers(results, refs, "four NCCL processes")
+    for label, *_rest in multihost_cases(grids):
+        rs = [r[label] for r in results]
+        print(f"[{card}] 4 processes x 1 card (nccl) {label}: bit-equal to "
+              f"the one-card run on every process; call "
+              f"{max(r['call_ms'] for r in rs):.1f} ms, exchange "
+              f"{max(r['exchange_ms'] for r in rs):.1f} ms"
+              + (f", generate_sdf_batch wall "
+                 f"{max(r['wall_ms'] for r in rs):.1f} ms"
+                 if "wall_ms" in rs[0] else ""), flush=True)
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+GOLDEN_CASES = {
+    256: ("icosphere6.stl", "sphere6_stl_256_mode2a.sparse.npz",
+          "far_sample_stride4", 4),
+    512: ("icosphere6_origin.stl", "sphere6_stl_512_mode2a.sparse.npz",
+          "far_sample_stride8", 8),
+}
+
+
+def sphere_grids():
+    """{n: (sphere82k mesh, its golden's n^3 grid)}."""
+    from sdfgenfast_tpu_torch import load_mesh
+    from sdfgenfast_tpu_torch.grid import sizing_python_api
+    from sdfgenfast_tpu_torch.mesh import Mesh
+
+    grids = {}
+    for n, (mesh_name, *_rest) in GOLDEN_CASES.items():
+        v, t, bounds = load_mesh(os.path.join(RESOURCES, mesh_name))
+        # nx = n - 2 plus one cell of padding per side: the golden's grid
+        grids[n] = (Mesh(v, t), sizing_python_api(
+            np.asarray(bounds[0], np.float32),
+            np.asarray(bounds[1], np.float32), nx=n - 2))
+    return grids
+
+
 def main():
     import torch
 
     from sdfgenfast_tpu_torch import (generate_from_file, generate_from_mesh,
                                       generate_sdf, generate_sdf_batch,
-                                      load_mesh, require_cuda)
+                                      require_cuda)
     from sdfgenfast_tpu_torch.grid import (sizing_mode2a_proportional,
                                            sizing_python_api)
     from sdfgenfast_tpu_torch.io import native
     from sdfgenfast_tpu_torch.kernels import build
-    from sdfgenfast_tpu_torch.mesh import Mesh, torus_mesh
+    from sdfgenfast_tpu_torch.mesh import torus_mesh
     from sdfgenfast_tpu_torch.ops import band_kernel, dense, recompute, vdt_kernel
     from sdfgenfast_tpu_torch.tools import micro_bench as mb
     from sdfgenfast_tpu_torch.testing import box36
@@ -3019,19 +3525,8 @@ def main():
                 print("  ptxas:", line.strip(), flush=True)
 
     # -- 3. kernels vs twins at main-path shapes ---------------------------
-    cases = {
-        256: ("icosphere6.stl", "sphere6_stl_256_mode2a.sparse.npz",
-              "far_sample_stride4", 4),
-        512: ("icosphere6_origin.stl", "sphere6_stl_512_mode2a.sparse.npz",
-              "far_sample_stride8", 8),
-    }
-    grids = {}
-    for n, (mesh_name, *_rest) in cases.items():
-        v, t, bounds = load_mesh(os.path.join(RESOURCES, mesh_name))
-        # nx = n - 2 plus one cell of padding per side: the golden's grid
-        grids[n] = (Mesh(v, t), sizing_python_api(
-            np.asarray(bounds[0], np.float32),
-            np.asarray(bounds[1], np.float32), nx=n - 2))
+    cases = GOLDEN_CASES
+    grids = sphere_grids()
     box = box36()
     box_grid = sizing_mode2a_proportional(*box.bounds(), 256, 1)
     torus = torus_mesh(32, 16)  # 1024 triangles: K1's streamed table
@@ -3374,11 +3869,25 @@ def main():
     torch.cuda.empty_cache()
     _, cube = box36_cube()
     offset_err = check_offset_kernels(torch, device, *grids[256])
-    shard_launches = sharded_phase(torch, device, grids, cases, box, cube)
+    shard_launches, shard_digests = sharded_phase(torch, device, grids, cases,
+                                                  box, cube)
     torch.cuda.empty_cache()
     shard_steps = sharded_steps(torch, device, grids, box, cube)
     torch.cuda.empty_cache()
-    sharded_times(torch, device, card, grids, box, cube)
+    shard_times = sharded_times(torch, device, card, grids, box, cube)
+
+    # -- 9. the sharded sweep modes and the multi-process path ---------------
+    # eikonal and propagate on ["cuda:0"] * 4 against the single device, a
+    # train_step in each; then two processes sharing the card (gloo), every
+    # case bit-equal to its single-process run above
+    torch.cuda.empty_cache()
+    sweep_phase = sharded_sweep_phase(torch, device, grids)
+    torch.cuda.empty_cache()
+    sweep_steps = sharded_sweep_steps(torch, device)
+    refs = multihost_refs(torch, device, grids, shard_digests, sweep_phase)
+    mh_results = multihost_phase(
+        torch, device, card, grids, refs,
+        {label: r["walls_ms"] for label, r in shard_times.items()})
 
     # the bounds at the shapes timed (see bound_ms)
     n_box, n_torus = int(np.prod(box_grid.shape)), int(np.prod(torus_grid.shape))
@@ -3602,6 +4111,17 @@ def main():
             row["launches_sharded"].update({
                 f"step {label} 2x2": r["launches"][key]
                 for label, r in shard_steps.items()})
+            # phase 9: the sweep modes over four shards and their steps,
+            # and each of the two processes' launches in each case
+            row["launches_sharded_sweep"] = {
+                f"{mode} sphere82k 256^3 2x2": r["launches"][key]
+                for mode, r in sweep_phase.items()}
+            row["launches_sharded_sweep"].update({
+                f"step {mode} icosphere(4) 64^3 2x2": r["launches"][key]
+                for mode, r in sweep_steps.items()})
+            row["launches_multihost"] = {
+                label: [r[label]["launches"][key] for r in mh_results]
+                for label in mh_results[0] if label != "batch"}
         if row["name"] in offset_err:
             row["max_abs_err_offsets"] = offset_err[row["name"]]
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]
@@ -3631,4 +4151,13 @@ def main():
 
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
-    main()
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        multihost_worker(*sys.argv[2:7])
+    elif sys.argv[1:] == ["--four-cards"]:
+        four_cards()
+    elif sys.argv[1:]:
+        sys.exit(f"unknown arguments {sys.argv[1:]}: none, "
+                 "--four-cards or --multihost-worker RANK WORLD BACKEND "
+                 "PORT OUT")
+    else:
+        main()

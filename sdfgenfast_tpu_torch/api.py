@@ -15,8 +15,9 @@ capped or flat jump-flood ladder, ``tile_shape``, ``chamfer_passes``, ...);
 
 ``generate_sdf_batch`` runs many meshes on one grid, binning mesh k+1 on the
 host while mesh k's kernels run on the card; with a ``device_mesh``
-(``parallel.make_device_mesh``) each mesh's grid is sharded over its
-devices (``parallel/sharded.py``).
+(``parallel.make_device_mesh``, or ``parallel.multihost.global_device_mesh``
+in every process of a process group) each mesh's grid is sharded over its
+devices (``parallel/sharded.py``, ``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -31,8 +32,10 @@ from .grid import GridSpec, sizing_python_api
 from .io import mesh_io as _mesh_io
 from .io import sdf_io as _sdf_io
 from .mesh import Mesh
+from .parallel.multihost import (assemble_blocks, fetch_global,
+                                 sharded_sdf_multihost)
 from .parallel.sharded import (bin_mesh_sharded, check_device_mesh,
-                               sharded_sdf)
+                               sharded_sdf, spans_processes)
 from .pipeline import SDFConfig, bin_mesh, make_level_set3
 from .platform import is_cuda_available, resolve_device
 
@@ -162,10 +165,14 @@ def generate_sdf_batch(
     so mesh k's device work is done before mesh k+1 is binned: no overlap.
 
     `device_mesh` (a ``parallel.DeviceMesh``) shards every grid over its
-    devices in ``"exact"`` mode (``parallel.sharded_sdf``), with the same
-    one-deep overlap: mesh k+1 is binned while mesh k's shards run. Its
-    devices take the place of `device`: CUDA devices for ``"auto"`` and
-    ``"gpu"``, CPU devices for ``"cpu"``.
+    devices (``parallel.sharded_sdf``), with the same one-deep overlap:
+    mesh k+1 is binned while mesh k's shards run. Its devices take the
+    place of `device`: CUDA devices for ``"auto"`` and ``"gpu"``, CPU
+    devices for ``"cpu"``. A mesh from ``multihost.global_device_mesh``
+    spreads the shards over the processes of a process group: every process
+    calls with the same arguments, runs its own shards
+    (``multihost.sharded_sdf_multihost``) and returns the same grids
+    (``multihost.fetch_global``).
     """
     if nx <= 0 or ny <= 0 or nz <= 0:
         raise ValueError("Grid dimensions must be positive (nx, ny, nz > 0)")
@@ -219,17 +226,23 @@ def _check_mesh_devices(backend: str, device: Device, device_mesh) -> None:
 
 def _sharded_batch(validated, grid: GridSpec, config: SDFConfig,
                    device_mesh):
-    """The batch over a device mesh (``sdfgenfast_tpu.api._sharded_batch``
-    in one process): each mesh's host binning overlaps the previous mesh's
-    shards on the devices, whose blocks are then copied back into one
-    (ni, nj, nk) array."""
+    """The batch over a device mesh (``sdfgenfast_tpu.api._sharded_batch``):
+    each mesh's host binning overlaps the previous mesh's shards on the
+    devices, whose blocks are then copied back into one (ni, nj, nk)
+    array; across processes every process bins every mesh, runs its shards
+    and gathers every block."""
     dims = tuple(device_mesh.devices.shape)
+    multi = spans_processes(device_mesh)
 
     def launch(mesh):
         sb = bin_mesh_sharded(mesh, grid, dims, config)
+        if multi:
+            return sharded_sdf_multihost(sb, device_mesh, mesh.verts)
         return sharded_sdf(sb, device_mesh, verts=mesh.verts, assemble=False)
 
     def collect(blocks):
+        if multi:
+            return assemble_blocks(fetch_global(blocks, device_mesh))
         return np.concatenate([np.concatenate(
             [b.cpu().numpy() for b in row], axis=2) for row in blocks], axis=1)
 

@@ -9,9 +9,11 @@ gradient descent on an SDF-space loss. The binning is static state, redone
 by :meth:`SDFGenerator.refresh` when the vertices move across cells. With
 ``far_field="eikonal"`` the gradient flows through the seeded band only
 (the far field is an estimate that carries none).
-With a ``device_mesh`` (``parallel.make_device_mesh``) the forward is
-``parallel.sharded_sdf``: each shard evaluates its block from
-``verts.to(its device)``, and autograd sums the shards' vertex gradients.
+With a ``device_mesh`` (``parallel.make_device_mesh``; every
+``far_field`` mode) the forward is ``parallel.sharded_sdf``: each shard
+evaluates its block from ``verts.to(its device)``, and autograd sums the
+shards' vertex gradients. The shards must live in this process: the
+multi-process path computes no gradient.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 from ..grid import GridSpec
 from ..mesh import Mesh
 from ..parallel.sharded import (DeviceMesh, ShardedBinned, bin_mesh_sharded,
-                                check_device_mesh, sharded_sdf)
+                                check_device_mesh, sharded_sdf,
+                                spans_processes)
 from ..pipeline import Binned, SDFConfig, bin_mesh, make_level_set3
 
 __all__ = ["SDFGenerator", "sgd_step"]
@@ -51,6 +54,10 @@ class SDFGenerator:
     def __post_init__(self):
         if self.device_mesh is not None:
             check_device_mesh(self.device_mesh)
+            if spans_processes(self.device_mesh):
+                raise ValueError("SDFGenerator's device_mesh must be one "
+                                 "process's (parallel.make_device_mesh): the "
+                                 "multi-process path computes no gradient")
             if self.device is None:
                 self.device = self.device_mesh.devices[0, 0]
         elif self.device is None:

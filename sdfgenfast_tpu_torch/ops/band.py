@@ -220,7 +220,8 @@ def bin_triangles(
 
 def band_distance_field(tri_verts, active_ids, cand, cand_valid, origin,
                         dx: float, tile_shape, tiles_dim, grid_shape,
-                        chunk: int = 128):
+                        chunk: int = 128, ijk_offset=None,
+                        upper_override=None):
     """Dense (ni, nj, nk) narrow-band (phi, closest_tri) from binned
     candidates: every cell of an active tile against every valid candidate
     of its tile (``point_triangle_distance_sq_soa``), the first minimum of
@@ -232,10 +233,13 @@ def band_distance_field(tri_verts, active_ids, cand, cand_valid, origin,
     (sentinel T rows are dropped); cand / cand_valid (A, K) int32 / bool;
     origin (3,) float32 tensor; dx a float32-representable float. Cell
     positions are the reference's f32(i) * dx + origin (makelevelset3.cpp:
-    214)."""
+    214). A shard's block passes `ijk_offset`, the global (i, j, k) of its
+    cell (0, 0, 0), added to the cell index before the cast, and
+    `upper_override`, the global grid's ``upper``."""
     device = tri_verts.device
     C = int(np.prod(tile_shape))
-    upper = _upper(grid_shape, dx)
+    upper = (_upper(grid_shape, dx) if upper_override is None
+             else np.float32(upper_override))
     # the padded slots (sentinel id T) would be dropped by the scatter:
     # leave them out of the evaluation
     live = active_ids < int(np.prod(tiles_dim))
@@ -247,8 +251,9 @@ def band_distance_field(tri_verts, active_ids, cand, cand_valid, origin,
     phi_rows, tid_rows = [], []
     for s, e in _chunks(A, chunk):
         cd, vd = cand[s:e], cand_valid[s:e]
-        gx = (_tile_cells(active_ids[s:e], tile_shape, tiles_dim,
-                          local).to(torch.float32) * dx + origin)  # (B, C, 3)
+        gx = (_tile_cells(active_ids[s:e], tile_shape, tiles_dim, local,
+                          ijk_offset).to(torch.float32) * dx
+              + origin)  # (B, C, 3)
         p = tuple(gx[:, :, None, ax] for ax in range(3))  # (B, C, 1)
         va, vb, vc = (tuple(v[:, None, :] for v in w)  # (B, 1, K)
                       for w in gather_tri9(tri9, cd))

@@ -1,5 +1,6 @@
-"""Multi-GPU SDF pipeline in one process: grid-tile sharding over a (j, k)
-mesh of devices.
+"""Multi-GPU SDF pipeline: grid-tile sharding over a (j, k) mesh of
+devices, the shards in one process (``multihost.py`` runs the same stages
+with the shards spread over several processes).
 
 Counterpart of ``sdfgenfast_tpu/parallel/sharded.py``. The grid is cut into
 (Dj, Dk) blocks of (ni, nj / Dj, nk / Dk) cells; shard (dj, dk) owns one
@@ -31,16 +32,27 @@ The decomposition is the JAX package's:
   (``vdt.vdt_far_field(halo_extend=...)``);
 - the chamfer: one ``passes``-deep exchange, K4 on the extended block, the
   block cut back out (:func:`_sharded_chamfer`);
+- ``far_field="eikonal"``: ``band_distance_field`` with the block's offset
+  and the global upper bound, then the Jacobi iterations over all blocks
+  in lockstep (``sweep.eikonal_far_field(halo_extend=...)``, one-cell
+  halos on j and on k an iteration), the band recomputed by R1;
+- ``far_field="propagate"``: the same band, then the plane scans
+  (:func:`_sharded_propagate`): along i every shard advances plane by
+  plane with a corner-complete one-cell halo of the previous planes;
+  along j or k one shard row a round, its last plane carried to the next
+  row; a pass ends in one OR over the shards; phi from R1 on the ids;
 - vertex gradients: each shard gathers ``verts.to(its device)``, so
   autograd sums the shards' gradients on ``verts``' device.
+
+Every exchange between shards goes through a transport: a
+:class:`LocalTransport` when this process owns every shard (copies with
+``.to(device)``), ``multihost.DistributedTransport`` when several
+processes share the mesh (``DeviceMesh.ranks``).
 
 Every step equals the single-device run's cell for cell, so a sharded run
 equals ``pipeline.make_level_set3`` bit for bit wherever the single-device
 pyramid's axis permutation (``pipeline._vdt_axis_perm``) is the identity
 (k the largest axis): the sharded pyramid always runs unpermuted.
-
-``far_field="propagate"`` and ``"eikonal"`` under a device mesh are not
-ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..grid import GridSpec
 from ..mesh import Mesh as TriMesh
@@ -60,6 +73,7 @@ from ..ops import dense as dense_ops
 from ..ops import recompute as recompute_ops
 from ..ops import sign as sign_ops
 from ..ops import sign_host as sign_host_ops
+from ..ops import sweep as sweep_ops
 from ..ops import vdt as vdt_ops
 from ..ops import vdt_kernel
 from ..pipeline import (SDFConfig, _band_k2, _band_tiles, check_supported,
@@ -67,7 +81,8 @@ from ..pipeline import (SDFConfig, _band_k2, _band_tiles, check_supported,
 from ..platform import require_cuda
 
 __all__ = ["DeviceMesh", "make_device_mesh", "ShardedBinned",
-           "bin_mesh_sharded", "sharded_sdf", "halo_comms_model"]
+           "bin_mesh_sharded", "sharded_sdf", "sharded_fields",
+           "LocalTransport", "spans_processes", "halo_comms_model"]
 
 
 def halo_comms_model(grid_shape, dims, max_hop=None, extra_rounds=None,
@@ -142,9 +157,12 @@ def halo_comms_model(grid_shape, dims, max_hop=None, extra_rounds=None,
 class DeviceMesh:
     """A (Dj, Dk) mesh of torch devices over the grid's j and k axes:
     shard (dj, dk) owns j-block dj and k-block dk of the grid. ``devices``
-    is a (Dj, Dk) object array of ``torch.device``, which may repeat."""
+    is a (Dj, Dk) object array of ``torch.device``, which may repeat;
+    ``ranks`` (``multihost.global_device_mesh``) the (Dj, Dk) int array of
+    the process that owns each shard, None when one process owns all."""
 
     devices: np.ndarray
+    ranks: Optional[np.ndarray] = None
 
 
 def make_device_mesh(devices=None, shape: Optional[Tuple[int, int]] = None
@@ -178,6 +196,12 @@ def check_device_mesh(device_mesh) -> Tuple[int, int]:
             or not all(isinstance(d, torch.device) for d in devices.flat)):
         raise TypeError("device_mesh must be a DeviceMesh "
                         "(parallel.make_device_mesh)")
+    ranks = getattr(device_mesh, "ranks", None)
+    if ranks is not None and (not isinstance(ranks, np.ndarray)
+                              or ranks.shape != devices.shape
+                              or ranks.dtype.kind not in "iu"):
+        raise TypeError("DeviceMesh.ranks must be an int array of the "
+                        "devices' shape")
     return tuple(int(v) for v in devices.shape)
 
 
@@ -379,7 +403,8 @@ def _shard_csr(b_cand: np.ndarray, b_valid: np.ndarray, num_tris: int):
 
 
 # ---------------------------------------------------------------------------
-# Shards and halo exchange (a "grid" is a list of Dj lists of Dk tensors)
+# Shards and their transport (a "grid" is a list of Dj lists of Dk blocks;
+# a block that another process owns is None)
 # ---------------------------------------------------------------------------
 
 
@@ -389,73 +414,137 @@ def _on(device):
             else contextlib.nullcontext())
 
 
-def _each(devices, fn):
-    """[[fn(dj, dk) for dk] for dj], each call under its shard's device."""
-    Dj, Dk = devices.shape
-    out = []
-    for dj in range(Dj):
-        row = []
-        for dk in range(Dk):
-            with _on(devices[dj, dk]):
-                row.append(fn(dj, dk))
-        out.append(row)
-    return out
+def _neighbour(dj: int, dk: int, axis_name: str, step: int, dims):
+    """The (dj, dk) of a shard's neighbour `step` blocks away along the
+    mesh axis `axis_name`, or None beyond the mesh."""
+    a, b = (dj + step, dk) if axis_name == "j" else (dj, dk + step)
+    return (a, b) if 0 <= a < dims[0] and 0 <= b < dims[1] else None
 
 
-def _extend(grid, axis_name: str, axis: int, fill: float, depth: int = 1):
-    """Each block of `grid` with `depth` planes of its lo and hi neighbours
-    along the mesh axis `axis_name` ("j" or "k") concatenated on tensor
-    axis `axis`: the lo neighbour's last planes, the hi neighbour's first
-    ones, each copied to the receiving block's device; `fill` at the
-    mesh's edges (``sdfgenfast_tpu.parallel.sharded._extend``)."""
-    Dj, Dk = len(grid), len(grid[0])
-    n = Dj if axis_name == "j" else Dk
-
-    def block(dj, dk, step):
-        a, b = (dj + step, dk) if axis_name == "j" else (dj, dk + step)
-        idx = a if axis_name == "j" else b
-        return grid[a][b] if 0 <= idx < n else None
-
-    out = []
-    for dj in range(Dj):
-        row = []
-        for dk in range(Dk):
-            x = grid[dj][dk]
-            size = x.shape[axis]
-            if depth > size:
-                raise ValueError(f"halo of {depth} cells on a block of "
-                                 f"{size} along {axis_name}")
-            halo_shape = list(x.shape)
-            halo_shape[axis] = depth
-            lo, hi = block(dj, dk, -1), block(dj, dk, 1)
-            lo = (torch.full(halo_shape, fill, dtype=x.dtype, device=x.device)
-                  if lo is None
-                  else lo.narrow(axis, size - depth, depth).to(x.device))
-            hi = (torch.full(halo_shape, fill, dtype=x.dtype, device=x.device)
-                  if hi is None else hi.narrow(axis, 0, depth).to(x.device))
-            row.append(torch.cat([lo, x, hi], dim=axis))
-        out.append(row)
-    return out
+def _halo_plane(x, axis: int, depth: int, step: int):
+    """The `depth` planes of block `x` that a block `step` away from it
+    along `axis` reads as its halo: x's last planes when x is that block's
+    lo neighbour (step -1), its first when the hi one (step 1)."""
+    size = x.shape[axis]
+    return x.narrow(axis, size - depth if step < 0 else 0, depth)
 
 
-def _state_halo_extend(grid, s: int):
+class LocalTransport:
+    """How the shards of a mesh reach each other when one process owns
+    them all: a neighbour's planes, the whole of a level and a carried
+    plane are copies to the receiving block's device (``.to(device)``).
+    ``parallel.multihost.DistributedTransport`` does the same between
+    processes. `devices` is the mesh's (Dj, Dk) array; `mine` marks the
+    shards this process owns (here every one)."""
+
+    def __init__(self, devices):
+        self.devices = devices
+        self.mine = np.ones(devices.shape, bool)
+
+    def each(self, fn):
+        """[[fn(dj, dk) for dk] for dj] over this process's shards (None
+        elsewhere), each call under its shard's device."""
+        Dj, Dk = self.devices.shape
+        out = []
+        for dj in range(Dj):
+            row = []
+            for dk in range(Dk):
+                if self.mine[dj, dk]:
+                    with _on(self.devices[dj, dk]):
+                        row.append(fn(dj, dk))
+                else:
+                    row.append(None)
+            out.append(row)
+        return out
+
+    def flat(self, grid):
+        """This process's blocks of `grid`, row-major."""
+        return [x for row in grid for x in row if x is not None]
+
+    def unflat(self, items):
+        """The inverse of :meth:`flat`: a grid with None where another
+        process owns the shard."""
+        it = iter(items)
+        return [[next(it) if m else None for m in row] for row in self.mine]
+
+    def _remote_halos(self, grid, axis_name, axis, depth):
+        """{(dj, dk, step): planes} received from other processes: none
+        here."""
+        return {}
+
+    def extend(self, grid, axis_name: str, axis: int, fill, depth: int = 1):
+        """Each block of `grid` with `depth` planes of its lo and hi
+        neighbours along the mesh axis `axis_name` ("j" or "k")
+        concatenated on tensor axis `axis`: the lo neighbour's last planes,
+        the hi neighbour's first ones; `fill` at the mesh's edges
+        (``sdfgenfast_tpu.parallel.sharded._extend``). `grid` may be a
+        row or a column of the mesh (the plane scans' rounds)."""
+        dims = (len(grid), len(grid[0]))
+        remote = self._remote_halos(grid, axis_name, axis, depth)
+        out = []
+        for dj in range(dims[0]):
+            row = []
+            for dk in range(dims[1]):
+                x = grid[dj][dk]
+                if x is None:
+                    row.append(None)
+                    continue
+                if depth > x.shape[axis]:
+                    raise ValueError(f"halo of {depth} cells on a block of "
+                                     f"{x.shape[axis]} along {axis_name}")
+                halo_shape = list(x.shape)
+                halo_shape[axis] = depth
+                halos = []
+                for step in (-1, 1):
+                    nb = _neighbour(dj, dk, axis_name, step, dims)
+                    if nb is None:
+                        halos.append(torch.full(halo_shape, fill,
+                                                dtype=x.dtype,
+                                                device=x.device))
+                    elif (dj, dk, step) in remote:
+                        halos.append(remote[dj, dk, step].to(x.device))
+                    else:
+                        halos.append(_halo_plane(grid[nb[0]][nb[1]], axis,
+                                                 depth, step).to(x.device))
+                row.append(torch.cat([halos[0], x, halos[1]], dim=axis))
+            out.append(row)
+        return out
+
+    def gather(self, grid, axis: int, device):
+        """The whole grid of blocks on `device`: the blocks concatenated
+        along tensor axis `axis` in j, then along `axis` + 1 in k."""
+        Dj, Dk = len(grid), len(grid[0])
+        return torch.cat([torch.cat([grid[a][b].to(device) for a in range(Dj)],
+                                    dim=axis) for b in range(Dk)],
+                         dim=axis + 1)
+
+    def any(self, flags) -> bool:
+        """True where any shard's 0-d bool tensor in the grid `flags` is:
+        one host sync."""
+        dev = self.devices.flat[0]
+        return bool(torch.stack([f.to(dev) for f in self.flat(flags)]).any())
+
+    def carry(self, plane, device):
+        """A plane scan's last plane, to the next shard row's device."""
+        return plane.to(device)
+
+
+def spans_processes(device_mesh) -> bool:
+    """True when another process owns some of the mesh's shards."""
+    ranks = getattr(device_mesh, "ranks", None)
+    return ranks is not None and len(np.unique(ranks)) > 1
+
+
+def _state_halo_extend(tr, grid, s: int):
     """Corner-complete s-deep halos on the sharded j and k axes of
     channel-first (5, ni, nj_l, nk_l) states: j first, then k of the
     j-extended blocks (so the corners come from the diagonal neighbours);
     FAR beyond the grid."""
-    ext = _extend(grid, "j", 2, float(vdt_ops.FAR), depth=s)
-    return _extend(ext, "k", 3, float(vdt_ops.FAR), depth=s)
+    ext = tr.extend(grid, "j", 2, float(vdt_ops.FAR), depth=s)
+    return tr.extend(ext, "k", 3, float(vdt_ops.FAR), depth=s)
 
 
-def _flat(grid):
-    return [x for row in grid for x in row]
-
-
-def _unflat(items, Dk: int):
-    return [items[r:r + Dk] for r in range(0, len(items), Dk)]
-
-
-def _sharded_chamfer(devices, phi, dx: float, passes: int):
+def _sharded_chamfer(tr, phi, dx: float, passes: int):
     """The chamfer with corner-complete cross-shard halos: one
     `passes`-deep exchange (3e38 beyond the grid), every pass on the
     extended block (K4 on CUDA), the block cut back out. Ring by ring the
@@ -463,18 +552,18 @@ def _sharded_chamfer(devices, phi, dx: float, passes: int):
     them, so each equals ``vdt_kernel.chamfer`` on the whole grid bit for
     bit."""
     p = int(passes)
-    ext = _extend(_extend(phi, "j", 1, vdt_ops._BIG, depth=p), "k", 2,
-                  vdt_ops._BIG, depth=p)
+    ext = tr.extend(tr.extend(phi, "j", 1, vdt_ops._BIG, depth=p), "k", 2,
+                    vdt_ops._BIG, depth=p)
 
     def run(dj, dk):
         _, nje, nke = ext[dj][dk].shape
         out = vdt_kernel.chamfer(ext[dj][dk], dx, p)
         return out[:, p:nje - p, p:nke - p].contiguous()
 
-    return _each(devices, run)
+    return tr.each(run)
 
 
-def _sharded_pyramid(devices, seeds, dx: float, j_offs, k_offs, gdims,
+def _sharded_pyramid(tr, seeds, dx: float, j_offs, k_offs, gdims,
                      extra_polish: int = 2):
     """The coarse-to-fine closest-point far field over the shards: the
     single-device schedule (``vdt.vdt_pyramid_far_field`` with
@@ -487,26 +576,25 @@ def _sharded_pyramid(devices, seeds, dx: float, j_offs, k_offs, gdims,
     phase = vdt_kernel.round_phase
     lshapes = vdt_ops.pyramid_level_shapes(gdims)
     L = len(lshapes)
-    Dj, Dk = devices.shape
+    devices = tr.devices
 
     def offs(dj, dk, lvl):
         return (0, j_offs[dj] >> lvl, k_offs[dk] >> lvl)
 
-    levels = [_each(devices, lambda dj, dk: vdt_ops.seed_state(
+    levels = [tr.each(lambda dj, dk: vdt_ops.seed_state(
         *seeds[dj][dk][:4], dx, offs(dj, dk, 0)))]
     for lvl in range(1, L):
         prev = levels[-1]
-        levels.append(_each(devices, lambda dj, dk: vdt_ops._downsample2(
+        levels.append(tr.each(lambda dj, dk: vdt_ops._downsample2(
             prev[dj][dk], dx, 1 << (lvl - 1), offs(dj, dk, lvl - 1))))
 
     coarse, scale_c = levels[-1], 1 << (L - 1)
     ladder = vdt_ops.stride_ladder(max(lshapes[-1]), extra_rounds=1)
 
     def coarse_ladder(dj, dk):
-        dev = devices[dj, dk]
-        full = torch.cat([torch.cat([coarse[a][b].to(dev) for a in range(Dj)],
-                                    dim=2) for b in range(Dk)], dim=3)
-        pos = vdt_ops._level_pos_axes(full.shape[1:], dx, scale_c, dev)
+        full = tr.gather(coarse, 2, devices[dj, dk])
+        pos = vdt_ops._level_pos_axes(full.shape[1:], dx, scale_c,
+                                      devices[dj, dk])
         for st in ladder:
             if st > 8:
                 full = vdt_ops._jacobi_round(full, *pos, st)
@@ -515,23 +603,136 @@ def _sharded_pyramid(devices, seeds, dx: float, j_offs, k_offs, gdims,
         _, jc, kc = offs(dj, dk, L - 1)
         return full[:, :, jc:jc + nj_c, kc:kc + nk_c].contiguous()
 
-    state = _each(devices, coarse_ladder)
+    state = tr.each(coarse_ladder)
     for lvl in range(L - 2, -1, -1):
         fine, scale = levels[lvl], 1 << lvl
         parents = state
-        state = _each(devices, lambda dj, dk: vdt_ops._upsample_merge(
+        state = tr.each(lambda dj, dk: vdt_ops._upsample_merge(
             parents[dj][dk], fine[dj][dk], *vdt_ops._level_pos_axes(
                 fine[dj][dk].shape[1:], dx, scale, devices[dj, dk],
                 offs(dj, dk, lvl))))
         rounds = (vdt_ops.PYRAMID_COARSE_ROUNDS if lvl > 0
                   else vdt_ops.PYRAMID_LEVEL_ROUNDS + (1,) * extra_polish)
         for st in rounds:
-            ext = _state_halo_extend(state, st)
-            state = _each(devices, lambda dj, dk: vdt_ops._halo_round(
+            ext = _state_halo_extend(tr, state, st)
+            state = tr.each(lambda dj, dk: vdt_ops._halo_round(
                 ext[dj][dk], dx, st, scale, offs(dj, dk, lvl), phase))
 
-    return _each(devices, lambda dj, dk: vdt_ops.finish_state(
+    return tr.each(lambda dj, dk: vdt_ops.finish_state(
         state[dj][dk], seeds[dj][dk][3], seeds[dj][dk][4], seeds[dj][dk][5]))
+
+
+# ---------------------------------------------------------------------------
+# The sharded plane scans (far_field="propagate"; one process)
+# ---------------------------------------------------------------------------
+
+
+def _scan_i(tr, phi, tid, tri_verts, pos_axes, reverse: bool):
+    """A plane scan along the unsharded i axis: every shard advances plane
+    by plane in lockstep, and each step's candidates come from the previous
+    plane of every shard extended corner-complete by one cell (j, then k of
+    the j-extended planes; -1 beyond the grid)."""
+    out_phi = tr.each(lambda dj, dk: sweep_ops.scan_copy(phi[dj][dk], 0))
+    out_tid = tr.each(lambda dj, dk: sweep_ops.scan_copy(tid[dj][dk], 0))
+    geo = tr.each(lambda dj, dk: sweep_ops.plane_geometry(pos_axes[dj][dk],
+                                                          0))
+    order = sweep_ops.scan_order(tr.flat(out_phi)[0].shape[0], reverse)
+    prev = tr.each(lambda dj, dk: out_tid[dj][dk][order[0]])
+    for a in order[1:]:
+        ext = tr.extend(tr.extend(prev, "j", 0, -1), "k", 1, -1)
+
+        def step(dj, dk):
+            gx0, plane_pos = geo[dj][dk]
+            new_phi, new_tid = sweep_ops.plane_update(
+                sweep_ops.shift_stack(ext[dj][dk]), out_phi[dj][dk][a],
+                out_tid[dj][dk][a], tri_verts[dj][dk],
+                (gx0 + plane_pos[a])[None])
+            out_phi[dj][dk][a] = new_phi
+            out_tid[dj][dk][a] = new_tid
+            return new_tid
+
+        prev = tr.each(step)
+    return out_phi, out_tid
+
+
+def _scan_sharded(tr, phi, tid, tri_verts, pos_axes, axis: int,
+                  reverse: bool):
+    """A plane scan along the sharded axis 1 (j) or 2 (k): one round a
+    shard row (column), in scan order. The active row's shards scan in
+    lockstep; each step's candidates come from their previous (ni, C)
+    planes padded by -1 on i and extended along the other sharded axis.
+    The first round keeps the scan's first plane; every later round updates
+    every plane of its blocks from the carry, the last plane of the
+    previous round's block moved to the next row's device."""
+    devices = tr.devices
+    Dj, Dk = devices.shape
+    out_phi = tr.each(lambda dj, dk: sweep_ops.scan_copy(phi[dj][dk], axis))
+    out_tid = tr.each(lambda dj, dk: sweep_ops.scan_copy(tid[dj][dk], axis))
+    geo = tr.each(lambda dj, dk: sweep_ops.plane_geometry(pos_axes[dj][dk],
+                                                          axis))
+    other = "k" if axis == 1 else "j"
+    carry = None
+    for r, row in enumerate(sweep_ops.scan_order(Dj if axis == 1 else Dk,
+                                                 reverse)):
+        members = ([(row, c) for c in range(Dk)] if axis == 1
+                   else [(c, row) for c in range(Dj)])
+        order = sweep_ops.scan_order(out_phi[row][0].shape[0] if axis == 1
+                                     else out_phi[0][row].shape[0], reverse)
+        if r == 0:
+            prev = [out_tid[m][n][order[0]] for m, n in members]
+            planes = order[1:]
+        else:
+            prev = [tr.carry(p, devices[m, n])
+                    for p, (m, n) in zip(carry, members)]
+            planes = order
+        for a in planes:
+            padded = [F.pad(p[None], (0, 0, 1, 1), value=-1)[0] for p in prev]
+            ext = tr.flat(tr.extend([padded] if axis == 1
+                                    else [[p] for p in padded],
+                                    other, 1, -1))
+            new = []
+            for (m, n), e in zip(members, ext):
+                with _on(devices[m, n]):
+                    gx0, plane_pos = geo[m][n]
+                    new_phi, new_tid = sweep_ops.plane_update(
+                        sweep_ops.shift_stack(e), out_phi[m][n][a],
+                        out_tid[m][n][a], tri_verts[m][n],
+                        (gx0 + plane_pos[a])[None])
+                    out_phi[m][n][a] = new_phi
+                    out_tid[m][n][a] = new_tid
+                new.append(new_tid)
+            prev = new
+        carry = prev
+    return tuple(tr.each(lambda dj, dk: g[dj][dk].movedim(0, axis)
+                         .contiguous()) for g in (out_phi, out_tid))
+
+
+def _sharded_propagate(tr, phi, tid, tri_verts, pos_axes, max_passes: int):
+    """``far_field="propagate"`` over the shards
+    (``sdfgenfast_tpu.parallel.sharded._sharded_propagate``): the
+    single-device passes of six plane scans (:func:`_scan_i`,
+    :func:`_scan_sharded`) until a pass changes no shard's phi (one host
+    sync a pass) or `max_passes` ran. Every plane update is the
+    single-device one on the same candidates, so phi, ids and the pass
+    count equal ``ops/sweep.propagate_closest_triangles``'s. `pos_axes`
+    gives each block's global (i, j, k) position tables. Returns (phi grid,
+    tid grid, passes)."""
+    passes = 0
+    while passes < max_passes:
+        phi0 = phi
+        for axis in (0, 1, 2):
+            for reverse in (False, True):
+                if axis == 0:
+                    phi, tid = _scan_i(tr, phi, tid, tri_verts, pos_axes,
+                                       reverse)
+                else:
+                    phi, tid = _scan_sharded(tr, phi, tid, tri_verts,
+                                             pos_axes, axis, reverse)
+        passes += 1
+        if not tr.any(tr.each(lambda dj, dk: (phi[dj][dk]
+                                              != phi0[dj][dk]).any())):
+            break
+    return phi, tid, passes
 
 
 def _upload(a, device):
@@ -582,27 +783,60 @@ def _shard_parity(binned: ShardedBinned, dj: int, dk: int, device, jk_offset):
         binned.block, chunk=cfg.sign_chunk, jk_offset=jk_offset)
 
 
+def _shard_sweep_band(binned: ShardedBinned, dj: int, dk: int, tri_verts,
+                      origin, dx: float, ijk_offset, gdims):
+    """The shard's band of the sweep modes, (phi0, tid0): the
+    single-device ``band_distance_field`` over its unpruned candidates,
+    with the block's offset and the global grid's upper bound."""
+    dev = tri_verts.device
+    cfg = binned.config
+    return band_ops.band_distance_field(
+        tri_verts, _upload(binned.band_ids[dj, dk], dev),
+        _upload(binned.band_cand[dj, dk], dev),
+        _upload(binned.band_valid[dj, dk], dev), origin, dx,
+        tuple(int(v) for v in cfg.tile_shape), binned.band_tiles_local,
+        binned.block, chunk=cfg.band_chunk, ijk_offset=ijk_offset,
+        upper_override=band_kernel._upper(gdims, dx))
+
+
 def sharded_sdf(binned: ShardedBinned, device_mesh: DeviceMesh, verts=None,
                 assemble: bool = True, return_tid: bool = False):
     """Run the sharded pipeline on `device_mesh` (whose shape must be the
-    binning's `dims`).
+    binning's `dims`), every shard in this process.
 
     `verts` ((N, 3): NumPy, or a float32 tensor, for gradients one that
     requires grad) is needed: the binning keeps only the triangles. With a
     gradient each shard evaluates phi again from ``verts.to(its device)``
     by R1/R1b with its offset, as ``make_level_set3(verts=...)`` does;
-    otherwise the sign is applied to the far field's phi. Returns the
+    otherwise the sign is applied to the far field's phi (``"propagate"``
+    always takes phi from R1, ``"eikonal"`` in the seeded band). Returns the
     (ni, nj, nk) field on the first shard's device if `assemble`, else the
     (Dj, Dk) grid (a list of lists) of (ni, nj_l, nk_l) blocks, each on its
     shard's device; with `return_tid`, a pair: that and the int32
-    closest-triangle ids in the same form."""
+    closest-triangle ids that the recompute reads, in the same form. A
+    mesh whose shards live in several processes runs through
+    ``parallel.multihost.sharded_sdf_multihost``."""
+    check_device_mesh(device_mesh)
+    if spans_processes(device_mesh):
+        raise ValueError("this device mesh spans processes: run it through "
+                         "parallel.multihost.sharded_sdf_multihost")
+    tr = LocalTransport(device_mesh.devices)
+    out, tids = sharded_fields(binned, device_mesh, verts, tr)
+    if assemble:
+        dev0 = device_mesh.devices[0, 0]
+        out, tids = (tr.gather(g, 1, dev0) for g in (out, tids))
+    return (out, tids) if return_tid else out
+
+
+def sharded_fields(binned: ShardedBinned, device_mesh: DeviceMesh, verts,
+                   tr):
+    """The sharded pipeline over the shards that `tr` (a
+    :class:`LocalTransport` or ``multihost.DistributedTransport``) owns:
+    (signed phi grid, id grid), None where another process owns a shard
+    (see :func:`sharded_sdf`)."""
     cfg = binned.config
     if cfg.far_field not in ("exact", "eikonal", "propagate"):
         raise ValueError(f"unknown far_field mode: {cfg.far_field}")
-    if cfg.far_field != "exact":
-        raise NotImplementedError(
-            f"far_field={cfg.far_field!r} under a device mesh is not ported "
-            "yet (only 'exact' is)")
     dims = check_device_mesh(device_mesh)
     if dims != tuple(binned.dims):
         raise ValueError(f"device mesh {dims} != the binning's {binned.dims}")
@@ -610,14 +844,15 @@ def sharded_sdf(binned: ShardedBinned, device_mesh: DeviceMesh, verts=None,
         raise ValueError("sharded_sdf needs `verts` (ShardedBinned stores "
                          "only tris)")
     dense = use_dense(cfg, len(binned.tris))
+    sweep = not dense and cfg.far_field != "exact"
     ni, nj_l, nk_l = binned.block
     Dj, Dk = dims
     gdims = (ni, nj_l * Dj, nk_l * Dk)
     pyramid = cfg.vdt_max_hop is None and cfg.vdt_extra_rounds is None
     strides = ()
-    if not dense and pyramid:
+    if not dense and not sweep and pyramid:
         _validate_pyramid_blocks(gdims, binned.block, dims)
-    elif not dense:
+    elif not dense and not sweep:
         cap = cfg.vdt_max_hop
         if cap is None or cap > min(nj_l, nk_l):
             raise ValueError(
@@ -651,12 +886,38 @@ def sharded_sdf(binned: ShardedBinned, device_mesh: DeviceMesh, verts=None,
         tv = verts.to(dev)[_upload(binned.tris, dev).long()]
         return tv, _upload(origin32, dev)
 
-    inputs = _each(devices, shard_inputs)
+    inputs = tr.each(shard_inputs)
+    far = None
     with torch.no_grad():
         if dense:
-            fields = _each(devices, lambda dj, dk: dense_ops.dense_distance_field(
+            fields = tr.each(lambda dj, dk: dense_ops.dense_distance_field(
                 inputs[dj][dk][0].detach(), inputs[dj][dk][1], dx,
                 grid_shape=binned.block, ijk_offset=ijk(dj, dk)))
+        elif sweep:
+            bands = tr.each(lambda dj, dk: _shard_sweep_band(
+                binned, dj, dk, inputs[dj][dk][0].detach(),
+                inputs[dj][dk][1], dx, ijk(dj, dk), gdims))
+            if cfg.far_field == "propagate":
+                pos = tr.each(lambda dj, dk: tuple(
+                    torch.arange(o, o + n, device=devices[dj, dk]).to(
+                        torch.float32) * dx + inputs[dj][dk][1][a]
+                    for a, (o, n) in enumerate(zip(ijk(dj, dk),
+                                                   binned.block))))
+                phis, tids, _ = _sharded_propagate(
+                    tr, _part(bands, 0), _part(bands, 1),
+                    tr.each(lambda dj, dk: inputs[dj][dk][0].detach()), pos,
+                    cfg.max_passes)
+                fields = _zip(phis, tids)
+            else:
+                iters = (cfg.eikonal_iters if cfg.eikonal_iters is not None
+                         else 2 * max(gdims))
+                far = tr.unflat(sweep_ops.eikonal_far_field(
+                    [b[0] for b in tr.flat(bands)],
+                    [b[1] >= 0 for b in tr.flat(bands)], dx, iters,
+                    halo_extend=lambda phis, axis: tr.flat(tr.extend(
+                        tr.unflat(phis), "jk"[axis - 1], axis,
+                        float("inf")))))
+                fields = bands
         else:
             seed_band = max(cfg.exact_band, 3)
             thresh = float(np.float32(seed_band) * np.float32(dx))
@@ -667,43 +928,52 @@ def sharded_sdf(binned: ShardedBinned, device_mesh: DeviceMesh, verts=None,
                                               origin, dx, ijk(dj, dk), gdims)
                 return (*cps, tid0, phi0, (tid0 >= 0) & (phi0 <= thresh))
 
-            seeds = _each(devices, band)
+            seeds = tr.each(band)
             if pyramid:
-                fields = _sharded_pyramid(devices, seeds, dx, j_offs, k_offs,
+                fields = _sharded_pyramid(tr, seeds, dx, j_offs, k_offs,
                                           gdims)
             else:
-                cols = list(zip(*_flat(seeds)))
-                fields = _unflat(vdt_ops.vdt_far_field(
+                cols = list(zip(*tr.flat(seeds)))
+                fields = tr.unflat(vdt_ops.vdt_far_field(
                     *cols[:5], dx, strides, freeze_mask=cols[5],
                     phase=vdt_kernel.round_phase,
-                    ijk_offset=[ijk(dj, dk) for dj in range(Dj)
-                                for dk in range(Dk)],
-                    halo_extend=lambda states, s: _flat(_state_halo_extend(
-                        _unflat(states, Dk), s))), Dk)
+                    ijk_offset=[ijk(dj, dk) for dj, dk in np.ndindex(dims)
+                                if tr.mine[dj, dk]],
+                    halo_extend=lambda states, s: tr.flat(_state_halo_extend(
+                        tr, tr.unflat(states), s))))
             if cfg.chamfer_passes > 0:
-                phis = _sharded_chamfer(
-                    devices, [[f[0] for f in row] for row in fields], dx,
-                    cfg.chamfer_passes)
-                fields = [[(p, f[1]) for p, f in zip(prow, frow)]
-                          for prow, frow in zip(phis, fields)]
-        parity = _each(devices, lambda dj, dk: _shard_parity(
+                phis = _sharded_chamfer(tr, _part(fields, 0), dx,
+                                        cfg.chamfer_passes)
+                fields = _zip(phis, _part(fields, 1))
+        parity = tr.each(lambda dj, dk: _shard_parity(
             binned, dj, dk, devices[dj, dk], (j_offs[dj], k_offs[dk])))
 
     def signed(dj, dk):
         phi, tid = fields[dj][dk]
-        if not grad:
+        if not grad and not sweep:
             return torch.where(parity[dj][dk], -phi, phi)
-        return recompute_ops.recompute_stage(
+        out = recompute_ops.recompute_stage(
             inputs[dj][dk][0], tid, parity[dj][dk], origin32, dx,
             ijk_offset=ijk(dj, dk), grid_shape=gdims)
+        if far is not None:
+            # eikonal: the band from R1, the far field the signed estimate
+            out = torch.where(tid >= 0, out, torch.where(
+                parity[dj][dk], -far[dj][dk], far[dj][dk]))
+        return out
 
-    out = _each(devices, signed)
-    tids = [[f[1] for f in row] for row in fields]
-    if assemble:
-        dev0 = devices[0, 0]
-        out, tids = (torch.cat([torch.cat([b.to(dev0) for b in row], dim=2)
-                                for row in g], dim=1) for g in (out, tids))
-    return (out, tids) if return_tid else out
+    return tr.each(signed), _part(fields, 1)
+
+
+def _part(grid, i: int):
+    """Item `i` of each block's tuple in `grid` (None stays None)."""
+    return [[None if x is None else x[i] for x in row] for row in grid]
+
+
+def _zip(*grids):
+    """The grid of tuples of the blocks of `grids` (None where theirs
+    are)."""
+    return [[None if xs[0] is None else xs for xs in zip(*rows)]
+            for rows in zip(*grids)]
 
 
 def _validate_pyramid_blocks(gdims, block, dims):

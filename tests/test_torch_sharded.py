@@ -46,6 +46,7 @@ import sdfgenfast_tpu_torch as P
 from sdfgenfast_tpu_torch.models import SDFGenerator
 from sdfgenfast_tpu_torch.ops import band_kernel, vdt as pvdt, vdt_kernel
 from sdfgenfast_tpu_torch.ops import recompute as prc
+from sdfgenfast_tpu_torch.parallel import multihost as pmh
 from sdfgenfast_tpu_torch.parallel import sharded as psh
 
 CPU = torch.device("cpu")
@@ -281,7 +282,8 @@ def test_k3_twin_with_position_offset_equals_global_round(dims, scale):
                for b in range(dims[1])] for a in range(dims[0])]
     for s in (1, 2, 3, 8):
         full = vdt_kernel.round_phase(st, dx, (s,), scale)
-        ext = psh._state_halo_extend(blocks, s)
+        ext = psh._state_halo_extend(psh.LocalTransport(pmesh(dims).devices),
+                                     blocks, s)
         for a, b in np.ndindex(*dims):
             off = (0, a * bj - s, b * bk - s)  # negative on the first blocks
             got = vdt_kernel.round_phase(ext[a][b], dx, (s,), scale,
@@ -312,14 +314,15 @@ def test_vdt_far_field_blocks_equal_the_capped_ladder():
         return [x[:, a * bj:(a + 1) * bj, b * bk:(b + 1) * bk].contiguous()
                 for a in range(Dj) for b in range(Dk)]
 
+    tr = psh.LocalTransport(pmesh(dims).devices)
     got = pvdt.vdt_far_field(
         *(cut(x) for x in (st[0], st[1], st[2], tid, phi_seed)), dx, strides,
         freeze_mask=cut(freeze), ijk_offset=[
             (0, a * bj, b * bk) for a in range(Dj) for b in range(Dk)],
-        halo_extend=lambda states, s: psh._flat(psh._state_halo_extend(
-            psh._unflat(states, Dk), s)), **kw)
+        halo_extend=lambda states, s: tr.flat(psh._state_halo_extend(
+            tr, tr.unflat(states), s)), **kw)
     for i, w in enumerate(want):
-        blocks = psh._unflat([g[i] for g in got], Dk)
+        blocks = tr.unflat([g[i] for g in got])
         whole = torch.cat([torch.cat(r, dim=2) for r in blocks], dim=1)
         np.testing.assert_array_equal(whole.numpy().view(np.int32),
                                       w.numpy().view(np.int32))
@@ -392,7 +395,7 @@ def test_recompute_phi_runs_on_the_twins_in_place_of_the_wrappers(
 # -- errors ------------------------------------------------------------------
 
 
-def test_errors():
+def test_errors(tmp_path):
     box = P.box_mesh()
     with pytest.raises(ValueError, match="divide"):
         psh.bin_mesh_sharded(box, P.GridSpec((-0.5,) * 3, 0.2, (10, 11, 13)),
@@ -404,11 +407,25 @@ def test_errors():
     with pytest.raises(ValueError, match="pyramid"):
         psh.sharded_sdf(sb, pmesh((1, 8)), verts=m.verts)
     g = P.GridSpec(*G32)
-    for mode in ("eikonal", "propagate"):
-        sb = psh.bin_mesh_sharded(m, g, (2, 4),
-                                  dataclasses.replace(cfg, far_field=mode))
-        with pytest.raises(NotImplementedError, match=mode):
-            psh.sharded_sdf(sb, pmesh((2, 4)), verts=m.verts)
+    # the multi-process path rejects propagate, as the JAX package does
+    sb = psh.bin_mesh_sharded(m, g, (2, 4),
+                              dataclasses.replace(cfg, far_field="propagate"))
+    with pytest.raises(NotImplementedError, match="'exact' and 'eikonal'"):
+        pmh.sharded_sdf_multihost(sb, pmesh((2, 4)), m.verts)
+    # a mesh whose shards live in two processes: no gradient path
+    two = dataclasses.replace(pmesh((2, 4)),
+                              ranks=np.repeat([[0], [1]], 4, axis=1))
+    with pytest.raises(ValueError, match="process"):
+        SDFGenerator(m, g, device_mesh=two)
+    with pytest.raises(ValueError, match="multihost"):
+        psh.sharded_sdf(sb, two, verts=m.verts)
+    pmh.initialize(f"file://{tmp_path / 'pg'}", 1, 0, "gloo")
+    try:
+        with pytest.raises(ValueError, match="does not hold"):
+            pmh.global_device_mesh(["cpu"] * 3, (2, 2))
+        assert pmh.global_device_mesh(["cpu"] * 2).ranks.tolist() == [[0, 0]]
+    finally:
+        torch.distributed.destroy_process_group()
     sb = psh.bin_mesh_sharded(m, g, (2, 4),
                               dataclasses.replace(cfg, vdt_max_hop=16))
     with pytest.raises(ValueError, match="vdt_max_hop"):
