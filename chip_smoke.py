@@ -87,7 +87,22 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      single-process run, its launches twice a shard's schedule, 512^3
      against its golden; the multi-process walls beside the single-process
      sharded ones, the exchange's wall and each process's peak memory. A
-     worker that fails or passes its deadline fails the smoke.
+     worker that fails or passes its deadline fails the smoke;
+ 10. the transfers (``upload.py``), after every timing above: the blob
+     upload bit-equal to the per-array ``.to`` upload on box36 and
+     sphere82k at 256^3 in both sign modes (the staging pinned, every view
+     inside the one allocation); ``to_host``, ``to_host_async`` and every
+     entry point (``generate_sdf``, ``generate_from_file``, the CLI in a
+     fresh process, ``generate_sdf_batch`` of four meshes at 256^3, the
+     one-process sharded batch) bit-equal to ``.cpu().numpy()``; the race
+     check (the source overwritten, released and its memory reused while
+     its copy is in flight); then new route beside old: the copy back
+     split into the link and the host write (and a fresh pinned result),
+     the upload, the walls of box36 and sphere82k at 256^3 and 512^3, the
+     ``train_step`` with the cached blob and re-uploading, the batch of four
+     against four single calls, the pinned memory held, a fresh process's
+     import and CLI walls. ``transfer_walls`` times the entry points of
+     another checkout's package with the same inputs.
 
 ``python3 chip_smoke.py --four-cards`` (not run by default; four visible
 GPUs) runs phases 1-2, then phase 9b's cases on ``["cuda:0", ...,
@@ -100,6 +115,7 @@ Imports nothing of JAX or of the JAX package.
 """
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -2174,16 +2190,18 @@ def stream_ms(torch, targets, fn):
 def route_times(torch, device, card, mesh, grid, routes, calls=3):
     """For each route: the wall per call (median of `calls` warm calls),
     split into host (``bin_mesh``), device (``make_level_set3``,
-    synchronised) and copy back; the stream time of the torch modules
-    (tile evaluator, band_distance_field, Gauss-Seidel rounds, plane scans,
-    eikonal, the device parity) in one more call; and peak device
-    memory."""
+    synchronised) and copy back (``upload.to_host``; the old
+    ``.cpu().numpy()`` beside it, outside the wall); the stream time of
+    the torch modules (tile evaluator, band_distance_field, Gauss-Seidel
+    rounds, plane scans, eikonal, the device parity) in one more call; and
+    peak device memory."""
     from sdfgenfast_tpu_torch.ops import band as band_ops
     from sdfgenfast_tpu_torch.ops import sign as sign_ops
     from sdfgenfast_tpu_torch.ops import sweep as sweep_ops
     from sdfgenfast_tpu_torch.ops import tiled as tiled_ops
     from sdfgenfast_tpu_torch.ops import vdt as vdt_ops
     from sdfgenfast_tpu_torch.pipeline import SDFConfig, bin_mesh, make_level_set3
+    from sdfgenfast_tpu_torch.upload import to_host
 
     modules = ((tiled_ops, "tile_candidate_rows", "tile evaluator"),
                (tiled_ops, "closest_point_rows", "tile evaluator"),
@@ -2196,7 +2214,8 @@ def route_times(torch, device, card, mesh, grid, routes, calls=3):
     out = {}
     for name, knobs, _ in routes:
         config = SDFConfig(**knobs)
-        stages = {"host": [], "device": [], "copy back": [], "wall": []}
+        stages = {"host": [], "device": [], "copy back": [], "wall": [],
+                  "old copy back": []}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for _ in range(calls):
@@ -2206,9 +2225,12 @@ def route_times(torch, device, card, mesh, grid, routes, calls=3):
             phi = make_level_set3(mesh, grid, config, binned, device=device)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            phi.cpu().numpy()
+            to_host(phi)
             t3 = time.perf_counter()
-            for key, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t3 - t0)):
+            phi.cpu().numpy()
+            t4 = time.perf_counter()
+            for key, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t3 - t0,
+                                       t4 - t3)):
                 stages[key].append(v * 1e3)
         peak = torch.cuda.max_memory_allocated() / 2**30
         del phi
@@ -2221,7 +2243,8 @@ def route_times(torch, device, card, mesh, grid, routes, calls=3):
         print(f"[{card}] route {name} {grid.shape}: wall {med['wall']:.1f} ms "
               f"(median of {calls} warm calls; min {min(stages['wall']):.1f})"
               f" = host bin_mesh {med['host']:.1f} + device make_level_set3 "
-              f"{med['device']:.1f} + copy back {med['copy back']:.1f} ms; "
+              f"{med['device']:.1f} + copy back {med['copy back']:.1f} ms "
+              f"(.cpu().numpy() {med['old copy back']:.1f} ms); "
               f"peak device memory {peak:.2f} GiB; stream time of the torch "
               f"modules: " + (", ".join(f"{k} {v:.2f} ms" for k, v in
                                         mods.items()) or "none")
@@ -3405,7 +3428,8 @@ def four_cards():
     single-process path on ``["cuda:0", ..., "cuda:3"]`` and four NCCL
     processes (one card each), every :func:`multihost_cases` case and the
     batch bit-equal to the one-card single-process run on
-    ``["cuda:0"] * 4``."""
+    ``["cuda:0"] * 4``; the single-device batch on each card equal to
+    cuda:0's."""
     import torch
 
     from sdfgenfast_tpu_torch import generate_sdf_batch, require_cuda
@@ -3438,8 +3462,26 @@ def four_cards():
         print(f"[{card}] one process on cuda:0-3 {label}: bit-equal to the "
               f"one-card run; {ms:.1f} ms (first call)", flush=True)
     meshes, grid = batch_meshes(grids)
+    args = (grid.origin, grid.dx, *grid.shape)
     refs["batch"] = [digest(p) for p in generate_sdf_batch(
-        meshes, grid.origin, grid.dx, *grid.shape, device_mesh=one)]
+        meshes, *args, device_mesh=one)]
+    # the copy back from distinct cards: the one-process sharded batch
+    # (each block to the host on its own card's side stream) and the
+    # single-device batch on every card, each against cuda:0
+    if [digest(p) for p in generate_sdf_batch(
+            meshes, *args, device_mesh=four)] != refs["batch"]:
+        raise AssertionError("four cards, one process: the sharded batch "
+                             "differs from the one-card run")
+    alone = [digest(p) for p in generate_sdf_batch(meshes, *args,
+                                                   device="cuda:0")]
+    for r in range(1, 4):
+        if [digest(p) for p in generate_sdf_batch(
+                meshes, *args, device=f"cuda:{r}")] != alone:
+            raise AssertionError(f"generate_sdf_batch on cuda:{r} differs "
+                                 "from cuda:0")
+    print(f"[{card}] one process: the sharded batch on cuda:0-3 bit-equal "
+          "to the one-card run; the single-device batch on cuda:1-3 "
+          "bit-equal to cuda:0's", flush=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     results = run_workers(4, "nccl", timeout_s=420)
@@ -3457,6 +3499,506 @@ def four_cards():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+# -- 10. transfers (upload.py) ------------------------------------------------
+
+
+def same_bytes(torch, a, b):
+    """Equal dtype, shape and bytes (two tensors on one device)."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def per_array_upload(torch, arrays, device):
+    """The upload as the port made it before upload.py: one pageable
+    ``.to(device)`` an array."""
+    return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for k, a in arrays.items()}
+
+
+def transfer_cases(grids, box, box_grid):
+    """(label, mesh, grid, SDFConfig knobs) of the upload's checks."""
+    return (("box36", box, box_grid, {}),
+            ("box36 device sign", box, box_grid, {"sign_mode": "device"}),
+            ("sphere82k 256^3", *grids[256], {}),
+            ("sphere82k 256^3 device sign", *grids[256],
+             {"sign_mode": "device"}))
+
+
+def check_uploads(torch, device, grids, box, box_grid):
+    """The blob upload against the per-array ``.to`` upload on each case:
+    every view bit-equal, every view inside the one allocation, the
+    staging pinned and byte-equal to ``pack_blob_host``, the blob that
+    ``bin_mesh(device=...)`` keeps equal to it, one upload each."""
+    from sdfgenfast_tpu_torch import pipeline, upload
+
+    for label, mesh, grid, knobs in transfer_cases(grids, box, box_grid):
+        config = pipeline.SDFConfig(**knobs)
+        binned = pipeline.bin_mesh(mesh, grid, config)
+        arrays = pipeline._blob_arrays(binned, mesh.verts)
+        staging, metas = upload._pinned_blob(arrays)
+        host, host_metas = upload.pack_blob_host(arrays)
+        if not (staging.is_pinned() and metas == host_metas
+                and np.array_equal(staging.numpy(), host)):
+            raise AssertionError(f"{label}: the staging is not the pinned "
+                                 "host blob")
+        n0 = upload.pack_device_blob.uploads
+        blob = upload.pack_device_blob(arrays, device)
+        kept = pipeline.bin_mesh(mesh, grid, config, device=device).device
+        if upload.pack_device_blob.uploads != n0 + 2:
+            raise AssertionError(f"{label}: uploads counted "
+                                 f"{upload.pack_device_blob.uploads - n0}")
+        old = per_array_upload(torch, arrays, device)
+        base = blob.blob.data_ptr()
+        for k, v in blob.arrays.items():
+            if not same_bytes(torch, v, old[k]):
+                raise AssertionError(f"{label} {k}: the blob's view differs "
+                                     "from the per-array upload")
+            if (v.untyped_storage().data_ptr() != base
+                    or not base <= v.data_ptr() <= base + blob.blob.numel()):
+                raise AssertionError(f"{label} {k}: not a view of the blob")
+        if not (kept.device == blob.device and torch.equal(kept.blob,
+                                                           blob.blob)):
+            raise AssertionError(f"{label}: bin_mesh(device=) kept another "
+                                 "blob")
+        torch.cuda.synchronize()
+        print(f"upload {label}: {len(arrays)} arrays, {blob.blob.numel()} "
+              f"bytes in one pinned blob, every view bit-equal to the "
+              f"per-array upload and inside the blob", flush=True)
+
+
+def check_downloads(torch, device, phi):
+    """to_host and to_host_async against ``.cpu().numpy()`` on the card:
+    `phi` (a main-path field), empty tensors, one piece, ragged last pieces,
+    non-contiguous, bool, int32, float64 and 0-d tensors, a block written
+    into its slice of a larger array; the ring's slots pinned; then the
+    race check:
+    ``to_host_async(phi)``, phi overwritten on its stream, released, and
+    its memory allocated again and filled, the result still phi's bytes."""
+    from sdfgenfast_tpu_torch import upload
+
+    g = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn((64, 100, 130), generator=g, device=device)
+    # sizes that are no multiple of CHUNK_BYTES (16 MiB): whole planes a
+    # piece, more pieces than ring slots, and the last piece short; planes
+    # above one slot, cut into rows; a 1-d tensor cut into elements
+    y = torch.randn((150, 300, 430), generator=g, device=device)
+    rows = torch.randn((3, 2050, 2050), generator=g, device=device)
+    flat = torch.randn(21_000_001, generator=g, device=device)
+    cases = {"phi": phi, "n0": x[:0], "scalar": x[3, 4, 5], "one piece": x,
+             "ragged planes": y, "ragged rows": rows, "ragged 1-d": flat,
+             "non-contiguous": y[:, ::3, 1:].transpose(0, 2),
+             "bool": y > 0, "int32": (y * 100).to(torch.int32),
+             "float64": y[:40].double()}
+    for label, t in cases.items():
+        want = t.cpu().numpy()
+        for name, got in (("to_host", upload.to_host(t)),
+                          ("to_host_async",
+                           upload.to_host_async(t).result())):
+            if (got.dtype != want.dtype or got.shape != want.shape
+                    or digest(got) != digest(want)):
+                raise AssertionError(f"{name} {label}: differs from "
+                                     ".cpu().numpy()")
+    big = np.full((64, 210, 270), -1, np.float32)
+    copies = [upload.to_host_async(x + a + 2 * c, out=big[
+        :, a * 105:a * 105 + 100, c * 135:c * 135 + 130]) for a in range(2)
+        for c in range(2)]
+    for copy in copies:
+        copy.result()
+    for a in range(2):
+        for c in range(2):
+            if digest(big[:, a * 105:a * 105 + 100, c * 135:c * 135 + 130]) \
+                    != digest(x + a + 2 * c):
+                raise AssertionError("to_host_async(out=) block differs")
+    slots = upload._STAGER.slots
+    if not (slots and all(s.is_pinned() for s in slots)
+            and upload.pinned_bytes() == upload.RING_SLOTS
+            * upload.CHUNK_BYTES):
+        raise AssertionError("the staging ring is not pinned")
+    print(f"to_host / to_host_async: {len(cases)} cases and four blocks "
+          f"into one array bit-equal to .cpu().numpy(); ring "
+          f"{upload.RING_SLOTS} x {upload.CHUNK_BYTES >> 20} MiB pinned",
+          flush=True)
+
+    # the race check: a spin keeps the card busy, so the side stream's
+    # copies are still waiting when phi is overwritten and its memory
+    # handed out again
+    want = digest(phi)
+    n = phi.numel()
+    torch.cuda._sleep(50_000_000)
+    copy = upload.to_host_async(phi)
+    phi.fill_(float("nan"))
+    del phi
+    other = torch.empty(n, dtype=torch.float32, device=device)
+    other.fill_(7.0)
+    got = copy.result()
+    if digest(got) != want:
+        raise AssertionError("to_host_async: the result changed when its "
+                             "source was overwritten and its memory reused")
+    del other
+    print("race check: to_host_async's result kept its source's bytes "
+          "after the source was overwritten, released and its memory "
+          "reused", flush=True)
+
+
+def check_entry_points(torch, device, grids, box, box_grid):
+    """Every entry point bit-equal to ``make_level_set3(...).cpu().numpy()``:
+    generate_sdf (box36), generate_from_file (sphere82k 256^3), the CLI on
+    box36 at 256 x 341 x 425 (a fresh process: its wall and the package's
+    import time in another fresh process), generate_sdf_batch of four
+    meshes at 256^3 and the one-process sharded batch of two. Returns the
+    fresh-process times."""
+    import shutil
+
+    from sdfgenfast_tpu_torch import (generate_from_file, generate_sdf,
+                                      generate_sdf_batch)
+    from sdfgenfast_tpu_torch.grid import sizing_mode2a_proportional
+    from sdfgenfast_tpu_torch.io import mesh_io, sdf_io
+    from sdfgenfast_tpu_torch.mesh import Mesh
+    from sdfgenfast_tpu_torch.parallel import (bin_mesh_sharded,
+                                               make_device_mesh, sharded_sdf)
+    from sdfgenfast_tpu_torch.pipeline import make_level_set3
+
+    def want(mesh, grid):
+        return make_level_set3(mesh, grid, device=device).cpu().numpy()
+
+    def check(label, got, ref):
+        if got.shape != ref.shape or digest(got) != digest(ref):
+            raise AssertionError(f"{label}: differs from .cpu().numpy()")
+
+    check("generate_sdf box36", generate_sdf(
+        box.verts, box.tris, box_grid.origin, box_grid.dx, *box_grid.shape,
+        device=device), want(box, box_grid))
+    check("generate_from_file sphere82k 256^3", generate_from_file(
+        os.path.join(RESOURCES, GOLDEN_CASES[256][0]), nx=254,
+        device=device)[0], want(*grids[256]))
+
+    work = os.path.join(ROOT, "build", "chip_smoke_transfers")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    mesh_io.save_stl(os.path.join(work, "box36.stl"), box)
+    env = {k: v for k, v in os.environ.items() if k != "SDFGEN_TORCH_BACKEND"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    fresh = {}
+    for label, cmd in (
+            ("python alone", ["-c", "pass"]),
+            ("import torch", ["-c", "import torch"]),
+            ("import sdfgenfast_tpu_torch", ["-c", "import time; t = "
+             "time.perf_counter(); import sdfgenfast_tpu_torch; "
+             "print('import_s', time.perf_counter() - t)"]),
+            ("CLI box36 256 1", ["-m", "sdfgenfast_tpu_torch.cli",
+                                 "box36.stl", "256", "1"])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *cmd], cwd=work, env=env,
+                           capture_output=True, text=True, timeout=300)
+        fresh[label] = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"{label} exited {r.returncode}:\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        if "import_s" in r.stdout:
+            fresh["import inside the process"] = float(
+                r.stdout.split("import_s")[1])
+    loaded, mn, mx = mesh_io.load_mesh(os.path.join(work, "box36.stl"))
+    cli_grid = sizing_mode2a_proportional(mn, mx, 256, 1)
+    phi, _, _ = sdf_io.read_sdf(os.path.join(
+        work, f"box36_sdf_{cli_grid.ni}x{cli_grid.nj}x{cli_grid.nk}.sdf"))
+    check("CLI box36", phi, want(loaded, cli_grid))
+    shutil.rmtree(work, ignore_errors=True)
+
+    meshes, grid = batch_four(grids)
+    got = generate_sdf_batch(meshes, grid.origin, grid.dx, *grid.shape,
+                             device=device)
+    for k, (v, t) in enumerate(meshes):
+        check(f"generate_sdf_batch mesh {k}", got[k], want(Mesh(v, t), grid))
+    dm = make_device_mesh([device] * 4, (2, 2))
+    got = generate_sdf_batch(meshes[:2], grid.origin, grid.dx, *grid.shape,
+                             device_mesh=dm)
+    for k, (v, t) in enumerate(meshes[:2]):
+        check(f"sharded batch mesh {k}", got[k], sharded_sdf(
+            bin_mesh_sharded(Mesh(v, t), grid, (2, 2)), dm,
+            verts=v).cpu().numpy())
+    print("entry points: generate_sdf, generate_from_file, the CLI, "
+          "generate_sdf_batch of four meshes at 256^3 and the one-process "
+          "sharded batch bit-equal to .cpu().numpy()", flush=True)
+    return fresh
+
+
+def batch_four(grids):
+    """Four meshes on sphere82k's 256^3 grid: the sphere and the sphere
+    scaled by 0.95, 0.9 and 0.85 about its centre."""
+    meshes, grid = [], grids[256][1]
+    mesh = grids[256][0]
+    c = mesh.verts.mean(axis=0)
+    for s in (1.0, 0.95, 0.9, 0.85):
+        meshes.append(((c + np.float32(s) * (mesh.verts - c)).astype(
+            np.float32), mesh.tris))
+    return meshes, grid
+
+
+def transfer_walls(reps=WARM_CALLS):
+    """The walls of the entry points with entry points an older package
+    has (run from another checkout's root to time its package with this
+    smoke's inputs): generate_sdf box36, generate_from_file sphere82k 256^3
+    and 512^3, one SDFGenerator.train_step on sphere82k 256^3 and box36
+    (host clock, synchronised), generate_sdf_batch of four meshes at 256^3
+    beside four single calls; median and min of `reps`."""
+    import torch
+
+    from sdfgenfast_tpu_torch import (generate_from_file, generate_sdf,
+                                      generate_sdf_batch)
+    from sdfgenfast_tpu_torch.grid import sizing_mode2a_proportional
+    from sdfgenfast_tpu_torch.kernels import build
+    from sdfgenfast_tpu_torch.models import SDFGenerator
+    from sdfgenfast_tpu_torch.testing import box36
+
+    build.build()
+    build.library()
+    device = torch.device("cuda", 0)
+    card = card_line()
+    grids = sphere_grids()
+    box = box36()
+    box_grid = sizing_mode2a_proportional(*box.bounds(), 256, 1)
+    meshes, grid = batch_four(grids)
+    args = (grid.origin, grid.dx, *grid.shape)
+    calls = {
+        "box36": lambda: generate_sdf(box.verts, box.tris, box_grid.origin,
+                                      box_grid.dx, *box_grid.shape,
+                                      device=device),
+        "sphere82k 256^3": lambda: generate_from_file(os.path.join(
+            RESOURCES, GOLDEN_CASES[256][0]), nx=254, device=device),
+        "sphere82k 512^3": lambda: generate_from_file(os.path.join(
+            RESOURCES, GOLDEN_CASES[512][0]), nx=510, device=device),
+        "batch of four 256^3": lambda: generate_sdf_batch(meshes, *args,
+                                                          device=device),
+        "four single calls 256^3": lambda: [generate_sdf(
+            v, t, *args, device=device) for v, t in meshes]}
+    for label, mesh, g in (("train_step sphere82k 256^3", *grids[256]),
+                           ("train_step box36", box, box_grid)):
+        model = SDFGenerator(mesh, g, device=device)
+        v0 = model.params
+        with torch.no_grad():
+            target = model.forward(v0 * 0.95)
+
+        def step(model=model, v0=v0, target=target):
+            model.train_step(v0, target, lr=1e-2)
+            torch.cuda.synchronize()
+        calls[label] = step
+    out = {}
+    for label, fn in calls.items():
+        fn()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        out[label] = median_min(walls)
+        print(f"[{card}] {os.getcwd()}: {label} {out[label][0]:.2f} / "
+              f"{out[label][1]:.2f} ms (median / min of {reps})", flush=True)
+    print("transfer_walls " + json.dumps(out), flush=True)
+    return out
+
+
+def median_min(xs):
+    return statistics.median(xs) * 1e3, min(xs) * 1e3
+
+
+def transfer_times(torch, device, card, grids, box, box_grid):
+    """New route beside old, each median and min of WARM_CALLS:
+
+    - the copy to the host of each main-path field: ``.cpu().numpy()``
+      (old), ``to_host`` (the ring), the link alone (one device -> pinned
+      copy of the whole field: the design where results are pinned
+      tensors, when torch's host cache holds a free block of that size),
+      the same with a fresh pinned allocation (the host cache emptied
+      first), and the host write alone (pinned -> a fresh NumPy array,
+      first touch included, and -> an array already written);
+    - the upload: per-array ``.to`` (old) against ``pack_device_blob``,
+      host wall (synchronised) and device time (CUDA events);
+    - walls of ``generate_sdf`` (new) against the same call made the old
+      way (binning on the host, the inputs uploaded for the call, the copy
+      back by ``.cpu().numpy()``);
+    - ``train_step`` with the cached blob against re-uploading every step;
+    - ``generate_sdf_batch`` of four meshes against four single calls;
+    - the pinned memory held."""
+    from sdfgenfast_tpu_torch import (generate_sdf, generate_sdf_batch,
+                                      pipeline, upload)
+    from sdfgenfast_tpu_torch.models import SDFGenerator
+
+    out = {}
+    cells = (("box36", box, box_grid), ("sphere82k 256^3", *grids[256]),
+             ("sphere82k 512^3", *grids[512]))
+    for label, mesh, grid in cells:
+        phi = pipeline.make_level_set3(mesh, grid, device=device)
+        torch.cuda.synchronize()
+        nbytes = phi.numel() * 4
+        pinned = torch.empty(phi.numel(), dtype=torch.float32,
+                             pin_memory=True)
+        touched = np.empty(phi.shape, np.float32)
+        touched.fill(0)
+        t = {k: [] for k in ("old", "ring", "link", "link_events",
+                             "pinned_fresh", "write_fresh", "write_touched")}
+        for _ in range(WARM_CALLS):
+            t0 = time.perf_counter()
+            phi.cpu().numpy()
+            t["old"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            upload.to_host(phi)
+            t["ring"].append(time.perf_counter() - t0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            pinned.copy_(phi.reshape(-1), non_blocking=True)
+            end.record()
+            end.synchronize()
+            t["link"].append(time.perf_counter() - t0)
+            t["link_events"].append(start.elapsed_time(end) / 1e3)
+            torch._C._host_emptyCache()
+            t0 = time.perf_counter()
+            fresh = torch.empty(phi.numel(), dtype=torch.float32,
+                                pin_memory=True)
+            fresh.copy_(phi.reshape(-1), non_blocking=True)
+            torch.cuda.synchronize()
+            t["pinned_fresh"].append(time.perf_counter() - t0)
+            del fresh
+            for key, dst in (("write_fresh", None), ("write_touched",
+                                                     touched)):
+                t0 = time.perf_counter()
+                if dst is None:
+                    dst = np.empty(phi.shape, np.float32)
+                torch.from_numpy(dst).copy_(pinned.view(phi.shape))
+                t[key].append(time.perf_counter() - t0)
+        r = {k: median_min(v) for k, v in t.items()}
+        r["bytes"] = nbytes
+        out[f"copy {label}"] = r
+        print(f"[{card}] copy to host {label} ({nbytes / 1e6:.1f} MB, median"
+              f" / min of {WARM_CALLS}): .cpu().numpy() {r['old'][0]:.2f} / "
+              f"{r['old'][1]:.2f} ms ({nbytes / r['old'][0] / 1e6:.2f} GB/s);"
+              f" to_host (pinned ring) {r['ring'][0]:.2f} / {r['ring'][1]:.2f}"
+              f" ms ({nbytes / r['ring'][0] / 1e6:.2f} GB/s); the link alone "
+              f"(device -> one pinned tensor) {r['link'][0]:.2f} / "
+              f"{r['link'][1]:.2f} ms, events {r['link_events'][0]:.2f} ms "
+              f"({nbytes / r['link_events'][0] / 1e6:.2f} GB/s), into a "
+              f"fresh pinned tensor {r['pinned_fresh'][0]:.2f} ms; the host "
+              f"write alone (pinned -> NumPy) {r['write_fresh'][0]:.2f} ms "
+              f"into a fresh array (first touch), {r['write_touched'][0]:.2f}"
+              f" ms into one already written", flush=True)
+        del phi, pinned, touched
+
+        config = pipeline.SDFConfig()
+        binned = pipeline.bin_mesh(mesh, grid, config)
+        arrays = pipeline._blob_arrays(binned, mesh.verts)
+        t = {k: [] for k in ("old", "old_events", "new", "new_events")}
+        for _ in range(WARM_CALLS):
+            for key, fn in (("old", lambda: per_array_upload(
+                    torch, arrays, device)), ("new", lambda: upload.
+                                              pack_device_blob(arrays,
+                                                               device))):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                t[key].append(time.perf_counter() - t0)
+                t[key + "_events"].append(start.elapsed_time(end) / 1e3)
+        r = {k: median_min(v) for k, v in t.items()}
+        r["bytes"] = int(sum(np.asarray(a).nbytes for a in arrays.values()))
+        r["arrays"] = len(arrays)
+        out[f"upload {label}"] = r
+        print(f"[{card}] upload {label} ({r['bytes'] / 1e6:.2f} MB in "
+              f"{len(arrays)} arrays, median / min of {WARM_CALLS}): per-array"
+              f" .to {r['old'][0]:.3f} / {r['old'][1]:.3f} ms (events "
+              f"{r['old_events'][0]:.3f}); one pinned blob "
+              f"{r['new'][0]:.3f} / {r['new'][1]:.3f} ms (events "
+              f"{r['new_events'][0]:.3f})", flush=True)
+
+        def new_call():
+            generate_sdf(mesh.verts, mesh.tris, grid.origin, grid.dx,
+                         *grid.shape, device=device)
+
+        def old_call():
+            b = pipeline.bin_mesh(mesh, grid, config)
+            pipeline.make_level_set3(mesh, grid, config, b,
+                                     device=device).cpu().numpy()
+
+        walls = {"new": [], "old": []}
+        for _ in range(WARM_CALLS):
+            for key, fn in (("new", new_call), ("old", old_call)):
+                t0 = time.perf_counter()
+                fn()
+                walls[key].append(time.perf_counter() - t0)
+        r = {k: median_min(v) for k, v in walls.items()}
+        out[f"wall {label}"] = r
+        print(f"[{card}] wall {label} (median / min of {WARM_CALLS}): "
+              f"generate_sdf {r['new'][0]:.1f} / {r['new'][1]:.1f} ms; the "
+              f"old way "
+              f"(host binning, one upload for the call, .cpu().numpy()) "
+              f"{r['old'][0]:.1f} / {r['old'][1]:.1f} ms", flush=True)
+        torch.cuda.empty_cache()
+
+    for label, mesh, grid in cells[:2]:
+        model = SDFGenerator(mesh, grid, device=device)
+        again = SDFGenerator(mesh, grid, device=device,
+                             binned=dataclasses.replace(model.binned,
+                                                        device=None))
+        v0 = model.params
+        with torch.no_grad():
+            target = model.forward(v0 * 0.95)
+        steps = {}
+        for key, m in (("cached", model), ("re-upload", again)):
+            n0 = upload.pack_device_blob.uploads
+            m.train_step(v0, target, lr=1e-2)
+            torch.cuda.synchronize()
+            ups = upload.pack_device_blob.uploads - n0
+            if ups != (0 if key == "cached" else 1):
+                raise AssertionError(f"train_step {label} {key}: {ups} "
+                                     "uploads")
+            steps[key] = cuda_ms(torch, lambda: m.train_step(
+                v0, target, lr=1e-2), WARM_CALLS)
+        out[f"train_step {label}"] = steps
+        print(f"[{card}] train_step {label}: cached blob {steps['cached']:.3f}"
+              f" ms (0 uploads a step), re-uploading every step "
+              f"{steps['re-upload']:.3f} ms (1 upload; CUDA events, mean of "
+              f"{WARM_CALLS})", flush=True)
+        del model, again, v0, target
+        torch.cuda.empty_cache()
+
+    meshes, grid = batch_four(grids)
+    args = (grid.origin, grid.dx, *grid.shape)
+    walls = {"batch": [], "singles": []}
+    generate_sdf_batch(meshes, *args, device=device)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        generate_sdf_batch(meshes, *args, device=device)
+        walls["batch"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for v, tr in meshes:
+            generate_sdf(v, tr, *args, device=device)
+        walls["singles"].append(time.perf_counter() - t0)
+    r = {k: median_min(v) for k, v in walls.items()}
+    out["batch of four 256^3"] = r
+    held = upload.pinned_bytes()
+    # what stays pinned once torch's host cache lets its free blocks go
+    torch._C._host_emptyCache()
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    cache = None if stats is None else {
+        k: v for k, v in stats().items() if "bytes" in k and "current" in k}
+    out["pinned_bytes"] = held
+    out["torch_host_cache"] = cache
+    print(f"[{card}] generate_sdf_batch of four meshes at {grid.shape}: "
+          f"{r['batch'][0]:.1f} / {r['batch'][1]:.1f} ms (median / min of "
+          f"3) against four single generate_sdf calls {r['singles'][0]:.1f} "
+          f"/ {r['singles'][1]:.1f} ms; pinned memory held by upload.py "
+          f"{held >> 20} MiB (the ring), torch's host allocator after "
+          f"emptying its cache "
+          + ("not reported" if cache is None else str(cache)), flush=True)
+    return out
 
 
 GOLDEN_CASES = {
@@ -3498,6 +4040,7 @@ def main():
     from sdfgenfast_tpu_torch.tools import micro_bench as mb
     from sdfgenfast_tpu_torch.testing import box36
     from sdfgenfast_tpu_torch.pipeline import SDFConfig, bin_mesh, make_level_set3
+    from sdfgenfast_tpu_torch.upload import to_host
 
     # -- 1. the card ---------------------------------------------------------
     require_cuda()
@@ -3755,7 +4298,8 @@ def main():
         # kernels and glue, synchronised), copy back
         mesh, grid = grids[n]
         stages = {"host bin_mesh": [], "device make_level_set3": [],
-                  "copy to host": []}
+                  "copy to host (to_host)": [],
+                  "old copy (.cpu().numpy())": []}
         torch.cuda.reset_peak_memory_stats()
         for _ in range(WARM_CALLS):
             t0 = time.perf_counter()
@@ -3764,9 +4308,11 @@ def main():
             phi = make_level_set3(mesh, grid, binned=binned, device=device)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            phi.cpu().numpy()
+            to_host(phi)
             t3 = time.perf_counter()
-            for key, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+            phi.cpu().numpy()
+            t4 = time.perf_counter()
+            for key, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
                 stages[key].append(v)
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"[{card}] {n}^3 breakdown (median of {WARM_CALLS}): " + ", ".join(
@@ -3783,7 +4329,7 @@ def main():
           f"{min(walls) * 1e3:.1f} ms over {WARM_CALLS} warm calls "
           f"(host parity + device + copy back)", flush=True)
     stages = {"host bin_mesh (parity)": [], "device make_level_set3": [],
-              "copy to host": []}
+              "copy to host (to_host)": [], "old copy (.cpu().numpy())": []}
     torch.cuda.reset_peak_memory_stats()
     for _ in range(WARM_CALLS):
         t0 = time.perf_counter()
@@ -3792,9 +4338,11 @@ def main():
         phi = make_level_set3(box, box_grid, binned=binned, device=device)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        phi.cpu().numpy()
+        to_host(phi)
         t3 = time.perf_counter()
-        for key, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+        phi.cpu().numpy()
+        t4 = time.perf_counter()
+        for key, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
             stages[key].append(v)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{card}] box36 {box_grid.shape} breakdown (median of "
@@ -3888,6 +4436,23 @@ def main():
     mh_results = multihost_phase(
         torch, device, card, grids, refs,
         {label: r["walls_ms"] for label, r in shard_times.items()})
+
+    # -- 10. transfers (upload.py) ------------------------------------------
+    # after every earlier phase, so that no earlier number moves: the blob
+    # upload against the per-array one, every download and entry point
+    # against .cpu().numpy(), the race check, then new route beside old
+    torch.cuda.empty_cache()
+    check_uploads(torch, device, grids, box, box_grid)
+    check_downloads(torch, device, make_level_set3(*grids[256],
+                                                   device=device))
+    torch.cuda.empty_cache()
+    fresh = check_entry_points(torch, device, grids, box, box_grid)
+    print(f"[{card}] fresh processes, the kernel library built: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in fresh.items()), flush=True)
+    torch.cuda.empty_cache()
+    transfers = transfer_times(torch, device, card, grids, box, box_grid)
+    transfers["fresh_process_s"] = fresh
+    print("transfers " + json.dumps(transfers), flush=True)
 
     # the bounds at the shapes timed (see bound_ms)
     n_box, n_torus = int(np.prod(box_grid.shape)), int(np.prod(torus_grid.shape))

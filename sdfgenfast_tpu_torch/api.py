@@ -13,8 +13,10 @@ optional ``config`` (``pipeline.SDFConfig``) for the schedule knobs (the
 capped or flat jump-flood ladder, ``tile_shape``, ``chamfer_passes``, ...);
 ``exact_band`` and ``far_field`` always come from their own arguments.
 
-``generate_sdf_batch`` runs many meshes on one grid, binning mesh k+1 on the
-host while mesh k's kernels run on the card; with a ``device_mesh``
+Every result comes back through ``upload.to_host`` (pinned staging on a
+side stream). ``generate_sdf_batch`` runs many meshes on one grid, binning
+and uploading mesh k+1 while mesh k's kernels run on the card and its grid
+is copied back (``upload.to_host_async``); with a ``device_mesh``
 (``parallel.make_device_mesh``, or ``parallel.multihost.global_device_mesh``
 in every process of a process group) each mesh's grid is sharded over its
 devices (``parallel/sharded.py``, ``parallel/multihost.py``).
@@ -38,6 +40,7 @@ from .parallel.sharded import (bin_mesh_sharded, check_device_mesh,
                                sharded_sdf, spans_processes)
 from .pipeline import SDFConfig, bin_mesh, make_level_set3
 from .platform import is_cuda_available, resolve_device
+from .upload import to_host, to_host_async
 
 __all__ = [
     "generate_sdf_batch",
@@ -134,7 +137,7 @@ def generate_sdf(
     mesh = Mesh(vertices, triangles)
     phi = make_level_set3(mesh, grid, _config(config, exact_band, far_field),
                           device=dev)
-    return phi.cpu().numpy()
+    return to_host(phi)
 
 
 def generate_sdf_batch(
@@ -159,10 +162,14 @@ def generate_sdf_batch(
     single call's result.
 
     One-deep pipeline, as ``sdfgenfast_tpu.api.generate_sdf_batch``: mesh
-    k+1 is binned on the host while mesh k's kernels run (the device work
-    is launched without a host sync), then mesh k is copied back. With
+    k's copy to the host starts as soon as its work is launched
+    (``upload.to_host_async``, the counterpart of ``copy_to_host_async``),
+    and mesh k+1 is binned and uploaded (one blob, ``bin_mesh(...,
+    device=...)``) while mesh k's kernels and copy run; mesh k+1's kernels
+    are queued before mesh k's copy is waited for. With
     ``far_field="propagate"`` the plane scans end every pass in a host sync,
-    so mesh k's device work is done before mesh k+1 is binned: no overlap.
+    so mesh k's device work is done before mesh k+1 is binned: only the
+    copy overlaps.
 
     `device_mesh` (a ``parallel.DeviceMesh``) shards every grid over its
     devices (``parallel.sharded_sdf``), with the same one-deep overlap:
@@ -199,14 +206,16 @@ def generate_sdf_batch(
     if device_mesh is not None:
         return _sharded_batch(validated, grid, config, device_mesh)
     out = []
-    pending = None  # device result of the previous mesh, maybe still running
+    pending = None  # the previous mesh's copy to the host, maybe running
     for mesh in validated:
-        binned = bin_mesh(mesh, grid, config)
+        binned = bin_mesh(mesh, grid, config, device=dev)
+        copy = to_host_async(make_level_set3(mesh, grid, config, binned,
+                                             device=dev))
         if pending is not None:
-            out.append(pending.cpu().numpy())
-        pending = make_level_set3(mesh, grid, config, binned, device=dev)
+            out.append(pending.result())
+        pending = copy
     if pending is not None:
-        out.append(pending.cpu().numpy())
+        out.append(pending.result())
     return out
 
 
@@ -228,7 +237,8 @@ def _sharded_batch(validated, grid: GridSpec, config: SDFConfig,
                    device_mesh):
     """The batch over a device mesh (``sdfgenfast_tpu.api._sharded_batch``):
     each mesh's host binning overlaps the previous mesh's shards on the
-    devices, whose blocks are then copied back into one (ni, nj, nk)
+    devices. In one process each block's copy to the host starts when the
+    shards are launched and writes into its slice of one (ni, nj, nk)
     array; across processes every process bins every mesh, runs its shards
     and gathers every block."""
     dims = tuple(device_mesh.devices.shape)
@@ -238,13 +248,22 @@ def _sharded_batch(validated, grid: GridSpec, config: SDFConfig,
         sb = bin_mesh_sharded(mesh, grid, dims, config)
         if multi:
             return sharded_sdf_multihost(sb, device_mesh, mesh.verts)
-        return sharded_sdf(sb, device_mesh, verts=mesh.verts, assemble=False)
+        blocks = sharded_sdf(sb, device_mesh, verts=mesh.verts,
+                             assemble=False)
+        out = np.empty(grid.shape, np.float32)
+        nj, nk = blocks[0][0].shape[1:]
+        return out, [to_host_async(b, out=out[:, a * nj:(a + 1) * nj,
+                                              c * nk:(c + 1) * nk])
+                     for a, row in enumerate(blocks)
+                     for c, b in enumerate(row)]
 
-    def collect(blocks):
+    def collect(launched):
         if multi:
-            return assemble_blocks(fetch_global(blocks, device_mesh))
-        return np.concatenate([np.concatenate(
-            [b.cpu().numpy() for b in row], axis=2) for row in blocks], axis=1)
+            return assemble_blocks(fetch_global(launched, device_mesh))
+        out, copies = launched
+        for copy in copies:
+            copy.result()
+        return out
 
     out = []
     pending = None

@@ -100,6 +100,7 @@ def main(argv=None) -> int:
     from .io import mesh_io, sdf_io
     from .pipeline import SDFConfig, make_level_set3
     from .platform import resolve_device
+    from .upload import to_host
 
     print("========================================")
     print("SDFGen - SDF Generation Tool (CUDA)")
@@ -206,8 +207,8 @@ def main(argv=None) -> int:
         print("  Implementation: CPU (plain PyTorch)\n")
 
     try:
-        phi = make_level_set3(mesh, grid, SDFConfig(),
-                              device=device).cpu().numpy()
+        phi = to_host(make_level_set3(mesh, grid, SDFConfig(),
+                                      device=device))
     except (ValueError, RuntimeError) as e:
         print(f"Error: SDF computation failed: {e}", file=sys.stderr)
         return 255

@@ -6,8 +6,10 @@ vertex positions (a float32 ``torch.Tensor`` on an explicit device), the
 forward is the SDF grid (``pipeline.make_level_set3(..., verts=...)``, whose
 gradient comes from the recompute kernels R1/R1b), and a training step is
 gradient descent on an SDF-space loss. The binning is static state, redone
-by :meth:`SDFGenerator.refresh` when the vertices move across cells. With
-``far_field="eikonal"`` the gradient flows through the seeded band only
+by :meth:`SDFGenerator.refresh` when the vertices move across cells: it
+uploads the binning and the vertices as one blob (``upload.py``), so a
+training step uploads nothing until the next :meth:`SDFGenerator.commit`.
+With ``far_field="eikonal"`` the gradient flows through the seeded band only
 (the far field is an estimate that carries none).
 With a ``device_mesh`` (``parallel.make_device_mesh``; every
 ``far_field`` mode) the forward is ``parallel.sharded_sdf``: each shard
@@ -30,6 +32,7 @@ from ..parallel.sharded import (DeviceMesh, ShardedBinned, bin_mesh_sharded,
                                 check_device_mesh, sharded_sdf,
                                 spans_processes)
 from ..pipeline import Binned, SDFConfig, bin_mesh, make_level_set3
+from ..upload import pack_device_blob, to_host
 
 __all__ = ["SDFGenerator", "sgd_step"]
 
@@ -72,12 +75,14 @@ class SDFGenerator:
                 self.mesh, self.grid, self.device_mesh.devices.shape,
                 self.config)
         else:
-            self.binned = bin_mesh(self.mesh, self.grid, self.config)
+            self.binned = bin_mesh(self.mesh, self.grid, self.config,
+                                   device=self.device)
 
     @property
     def params(self) -> torch.Tensor:
-        return torch.from_numpy(np.array(self.mesh.verts, np.float32)).to(
-            self.device)
+        """The vertices on `device`, a fresh tensor (one upload)."""
+        return pack_device_blob({"verts": self.mesh.verts},
+                                self.device).arrays["verts"]
 
     def forward(self, verts: torch.Tensor) -> torch.Tensor:
         """SDF grid from vertex positions (differentiable)."""
@@ -100,7 +105,7 @@ class SDFGenerator:
 
     def commit(self, verts: torch.Tensor):
         """Adopt new vertex positions and rebin."""
-        self.mesh = Mesh(verts.detach().cpu().numpy(), self.mesh.tris)
+        self.mesh = Mesh(to_host(verts), self.mesh.tris)
         self.refresh()
 
 

@@ -41,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from ..platform import require_cuda
+from ..upload import to_host
 from . import sharded as sh
 
 __all__ = ["initialize", "global_device_mesh", "make_global_array",
@@ -233,8 +234,10 @@ def fetch_global(blocks, device_mesh) -> np.ndarray:
     else:
         flat = [b for row in blocks for b in row]
     Dj, Dk = device_mesh.devices.shape
-    return np.stack([b.cpu().numpy() for b in flat]).reshape(
-        Dj, Dk, *flat[0].shape)
+    out = np.empty((Dj * Dk, *flat[0].shape), np.float32)
+    for b, o in zip(flat, out):
+        to_host(b, out=o)
+    return out.reshape(Dj, Dk, *flat[0].shape)
 
 
 def assemble_blocks(blocks: np.ndarray) -> np.ndarray:

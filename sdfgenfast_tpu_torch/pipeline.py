@@ -77,6 +77,7 @@ from .ops import sweep as sweep_ops
 from .ops import tiled as tiled_ops
 from .ops import vdt as vdt_ops
 from .ops import vdt_kernel
+from . import upload
 
 __all__ = ["SDFConfig", "Binned", "bin_mesh", "binned_from_arrays",
            "check_supported", "dense_sign_core", "exact_core",
@@ -131,6 +132,12 @@ class Binned:
 
     seed_band: the band the candidates were binned with (the freeze
     threshold never exceeds it).
+
+    device: the binning's arrays and the mesh's vertices uploaded as one
+    blob (``upload.DeviceBlob``: the views and the torch.device they live
+    on), made at bin time by ``bin_mesh(..., device=...)``;
+    :func:`make_level_set3` on that device reads them and uploads nothing.
+    None for a host-only binning.
     """
 
     grid: GridSpec
@@ -146,6 +153,46 @@ class Binned:
     cand: Optional[np.ndarray] = None
     cand_valid: Optional[np.ndarray] = None
     sign: Optional[sign_ops.SignBinning] = None
+    device: Optional[upload.DeviceBlob] = None
+
+
+# the device sign's arrays in the blob: SignBinning's f, window, active_ids,
+# cand and cand_valid, in parity_field's order
+_SIGN_NAMES = ("sign_f", "sign_window", "sign_ids", "sign_cand", "sign_valid")
+
+
+def _blob_arrays(binned: "Binned", verts) -> dict:
+    """Every array a call on `binned` can read, by its name in the blob:
+    the mesh's vertices `verts`, the triangles, the origin, the host
+    parity's transport, the band binning's CSR or (A, K) matrices and the
+    device sign's binning."""
+    a = {"verts": np.ascontiguousarray(verts, np.float32),
+         "tris": binned.tris,
+         "origin": np.asarray(binned.grid.origin, np.float32)}
+    if binned.parity_packed is not None:
+        a["parity"] = binned.parity_packed
+    if binned.parity_crossings is not None:
+        a["crossings"] = binned.parity_crossings
+    if binned.band_csr is not None:
+        a.update((k, binned.band_csr[k]) for k in ("pair", "off", "cnt",
+                                                    "ids"))
+    if binned.active_ids is not None:
+        a.update(active_ids=binned.active_ids, cand=binned.cand,
+                 cand_valid=binned.cand_valid)
+    sb = binned.sign
+    if sb is not None:
+        a.update(zip(_SIGN_NAMES, (sb.f, sb.window, sb.active_ids, sb.cand,
+                                   sb.cand_valid)))
+    return a
+
+
+def _uploaded(binned: "Binned", verts, device) -> "Binned":
+    """`binned` with its arrays and `verts` uploaded to `device` as one blob
+    (unchanged for device None)."""
+    if device is None:
+        return binned
+    return dataclasses.replace(binned, device=upload.pack_device_blob(
+        _blob_arrays(binned, verts), device))
 
 
 def _bucket(n: int, minimum: int = 64, shift: int = 4) -> int:
@@ -256,14 +303,15 @@ def _sign_binning(mesh: Mesh, grid: GridSpec, config: SDFConfig):
 
 
 def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
-             min_cross_rows: int = 0) -> Binned:
+             min_cross_rows: int = 0, device=None) -> Binned:
     """Host-side preprocessing for :func:`make_level_set3`: the x-ray
     parity (host sign) or the 2D sign binning (device sign), plus band
     binning on the binned path, in the layout the route reads
     (``sdfgenfast_tpu.pipeline.bin_mesh``). In device sign mode the JAX
     package bins the band on the dense path too, which reads none of it;
     the port does not. `min_cross_rows` pads the crossings transport's row
-    count."""
+    count. With a `device`, the binning and the mesh's vertices go up to it
+    as one blob, kept in ``Binned.device``."""
     mesh.validate_indices()
     check_supported(config, len(mesh.tris))
     packed = cross = sign = None
@@ -274,8 +322,9 @@ def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
         sign = _sign_binning(mesh, grid, config)
     tris = mesh.tris.astype(np.int32)
     if use_dense(config, len(mesh.tris)):
-        return Binned(grid, config, tris, parity_packed=packed,
-                      parity_crossings=cross, sign=sign)
+        return _uploaded(Binned(grid, config, tris, parity_packed=packed,
+                                parity_crossings=cross, sign=sign),
+                         mesh.verts, device)
     # the exact far field: a >=3-cell seed band makes the 27-neighbourhood
     # union cover the true closest triangle for near-band cells; the
     # propagate/eikonal modes bin the band itself, unpruned (they rely on
@@ -291,10 +340,11 @@ def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
     ids[bb.num_active:] = T
     if not reads_csr(config):
         pad = ((0, A_pad - bb.num_active), (0, 0))
-        return Binned(grid, config, tris, bb.tiles_dim, None, packed, cross,
-                      seed_band, tile_shape, active_ids=ids,
-                      cand=np.pad(bb.cand, pad),
-                      cand_valid=np.pad(bb.cand_valid, pad), sign=sign)
+        return _uploaded(Binned(
+            grid, config, tris, bb.tiles_dim, None, packed, cross, seed_band,
+            tile_shape, active_ids=ids, cand=np.pad(bb.cand, pad),
+            cand_valid=np.pad(bb.cand_valid, pad), sign=sign),
+            mesh.verts, device)
     pair, off, cnt = band_kernel.band_csr_from_binning(
         bb.cand, bb.cand_valid, int(len(mesh.tris)))
     off = np.pad(off, (0, A_pad - len(off)))
@@ -304,8 +354,9 @@ def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
                   constant_values=len(mesh.tris))
     kcap = max(-(-int(cnt.max() or 1) // 64) * 64, 64)
     csr = {"pair": pair, "off": off, "cnt": cnt, "kcap": kcap, "ids": ids}
-    return Binned(grid, config, tris, bb.tiles_dim, csr, packed, cross,
-                  seed_band, tile_shape, sign=sign)
+    return _uploaded(Binned(grid, config, tris, bb.tiles_dim, csr, packed,
+                            cross, seed_band, tile_shape, sign=sign),
+                     mesh.verts, device)
 
 
 def binned_from_arrays(grid: GridSpec, config: SDFConfig, *, tris,
@@ -530,24 +581,54 @@ def sweep_core(tri_verts, band, parity_data, origin, dx: float, *, mode,
     return tid0, parity, torch.where(parity, -phi, phi)
 
 
-def _band_tensors(binned: Binned, config: SDFConfig, dev):
-    """The binning's band arrays that the route reads, on the device."""
-    if tuple(binned.tile_shape) != tuple(config.tile_shape):
-        raise ValueError(f"this Binned has {binned.tile_shape} tiles, the "
-                         f"config {tuple(config.tile_shape)}")
-    if reads_csr(config):
-        if binned.band_csr is None:
+def _call_names(binned: Binned, config: SDFConfig, dense: bool):
+    """(band, sign): the blob names of the band arrays and the sign arrays
+    that a call with `config` reads from `binned`, after checking that it
+    holds them: the band binning in the layout the route reads (none on
+    the dense path), and the sign `config` asks for."""
+    band = []
+    if not dense:
+        if tuple(binned.tile_shape) != tuple(config.tile_shape):
+            raise ValueError(f"this Binned has {binned.tile_shape} tiles, "
+                             f"the config {tuple(config.tile_shape)}")
+        if reads_csr(config):
+            if binned.band_csr is None:
+                raise ValueError(
+                    "this Binned holds no CSR band binning (it was made for "
+                    "the dense path or another route); bin the mesh with "
+                    "this config")
+            band = ["ids", "pair", "off", "cnt"]
+        elif binned.active_ids is None:
             raise ValueError(
-                "this Binned holds no CSR band binning (it was made for the "
-                "dense path or another route); bin the mesh with this config")
-        return {k: dev(binned.band_csr[k])
-                for k in ("ids", "pair", "off", "cnt")}
-    if binned.active_ids is None:
-        raise ValueError(
-            "this Binned holds no (A, K) band matrices (it was made for the "
-            "dense path or another route); bin the mesh with this config")
-    return {"active_ids": dev(binned.active_ids), "cand": dev(binned.cand),
-            "cand_valid": dev(binned.cand_valid)}
+                "this Binned holds no (A, K) band matrices (it was made for "
+                "the dense path or another route); bin the mesh with this "
+                "config")
+        else:
+            band = ["active_ids", "cand", "cand_valid"]
+    if config.sign_mode == "device":
+        if binned.sign is None:
+            raise ValueError("this Binned holds no sign binning (it was made "
+                             "for sign_mode='host'); bin the mesh with this "
+                             "config")
+        return band, list(_SIGN_NAMES)
+    if binned.sign is not None:
+        raise ValueError("this Binned holds the device sign's binning, not "
+                         "the host parity; bin the mesh with this config")
+    return band, ["parity" if binned.parity_packed is not None
+                  else "crossings"]
+
+
+def _device_arrays(mesh: Mesh, binned: Binned, names, device):
+    """The arrays of `names` on `device`: the views of ``binned.device``
+    where it lives there (no upload), else one blob packed for this call
+    (with ``mesh.verts``)."""
+    blob = binned.device
+    if blob is not None and blob.device == device and all(
+            n in blob.arrays for n in names):
+        return blob.arrays
+    arrays = _blob_arrays(binned, mesh.verts)
+    return upload.pack_device_blob({n: arrays[n] for n in names},
+                                   device).arrays
 
 
 def make_level_set3(mesh: Mesh, grid: GridSpec,
@@ -572,54 +653,45 @@ def make_level_set3(mesh: Mesh, grid: GridSpec,
 
     With ``sign_mode="device"`` the parity is ``ops/sign.parity_field``
     on `device`, from the binning's 2D sign tiles, computed once per call
-    and read by the route and the recompute alike."""
+    and read by the route and the recompute alike.
+
+    The inputs come from ``binned.device`` when it lives on `device` (its
+    vertices, those of the mesh it was binned from, stand for
+    ``mesh.verts``); otherwise they go up as one blob for this call
+    (``upload.pack_device_blob``). Nothing here writes into them."""
     if mesh.is_empty:
         raise ValueError(
             "Cannot generate SDF from empty mesh (vertices or triangles are empty)"
         )
-    device = torch.device(device)
+    device = upload.canonical(device)
     check_supported(config, len(mesh.tris))
     if binned is None:
-        binned = bin_mesh(mesh, grid, config)
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    if verts is None:
-        v = dev(mesh.verts)
-    else:
+        binned = bin_mesh(mesh, grid, config, device=device)
+    dense = use_dense(config, len(mesh.tris))
+    band_names, sign_names = _call_names(binned, config, dense)
+    if verts is not None:
         v = torch.as_tensor(verts, dtype=torch.float32, device=device)
         if tuple(v.shape) != tuple(mesh.verts.shape):
             raise ValueError(f"verts must have shape {mesh.verts.shape}, got "
                              f"{tuple(v.shape)}")
-    tris = dev(binned.tris)
+    d = _device_arrays(
+        mesh, binned, ["tris", "origin"] + band_names + sign_names
+        + ["verts"] * (verts is None), device)
+    if verts is None:
+        v = d["verts"]
+    tris, origin = d["tris"], d["origin"]
     dx = float(np.float32(grid.dx))
-    origin = dev(np.asarray(grid.origin, np.float32))
-    dense = use_dense(config, len(mesh.tris))
-    band = None if dense else _band_tensors(binned, config, dev)
-    # every upload before the first launch: the device sign's work then
-    # queues behind nothing the host waits for
-    if config.sign_mode == "device":
-        sb = binned.sign
-        if sb is None:
-            raise ValueError("this Binned holds no sign binning (it was made "
-                             "for sign_mode='host'); bin the mesh with this "
-                             "config")
-        sign_arrays = [dev(a) for a in (sb.f, sb.window, sb.active_ids,
-                                        sb.cand, sb.cand_valid)]
-    elif binned.sign is not None:
-        raise ValueError("this Binned holds the device sign's binning, not "
-                         "the host parity; bin the mesh with this config")
-    else:
-        parity = dev(binned.parity_packed if binned.parity_packed is not None
-                     else binned.parity_crossings)
+    band = None if dense else {k: d[k] for k in band_names}
+    if config.sign_mode == "host":
+        parity = d[sign_names[0]]
     far = None
     with torch.no_grad():
         if config.sign_mode == "device":
             # computed once; the route and the recompute read this field
+            sb = binned.sign
             parity = sign_ops.parity_field(
-                *sign_arrays, sb.tile_shape, sb.tiles_dim, grid.shape,
-                chunk=config.sign_chunk)
+                *(d[k] for k in sign_names), sb.tile_shape, sb.tiles_dim,
+                grid.shape, chunk=config.sign_chunk)
         if dense:
             phi, tid = dense_sign_core(v.detach(), tris, parity, origin, dx,
                                        grid_shape=grid.shape)
