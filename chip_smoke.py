@@ -102,7 +102,23 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      ``train_step`` with the cached blob and re-uploading, the batch of four
      against four single calls, the pinned memory held, a fresh process's
      import and CLI walls. ``transfer_walls`` times the entry points of
-     another checkout's package with the same inputs.
+     another checkout's package with the same inputs;
+ 11. the flagship torus and the port's tools, after every phase above:
+     (a) torus100k (``torus_mesh()``, 100,352 triangles) through
+     ``generate_sdf`` on bench.py's grids at 256 x 256 x 75 and 512 x 512 x
+     148, its launches exact (K1 0, K2 1 + 1, K3 the pyramid's schedule, K4
+     1), held to the analytic torus (``testing.torus_bars``: 0 sign
+     mismatches off the tessellation's gap, the exact band within the gap,
+     never below the exact distance, within 0.2 dx above it), the staged
+     run (``tools.profile_stages.staged``) bit-equal to the call; (b) box36
+     at the box64 and box128 grids (dense) against the binned path; (c)
+     ``tools.bench`` through its command line on all seven configurations
+     (its JSON line), ``tools.profile_stages`` on box36 and sphere82k at
+     256 and torus100k at 256 and 512, each staged run bit-equal to its
+     production call; (d) ``tools.batch_bench`` with 4 meshes, the batch
+     bit-equal to the meshes one at a time; (e) K2, K3 and K4 on the
+     torus's own inputs at both grids against their twins, timed beside
+     their bounds (from the torus's CSR), as kernel-table rows.
 
 ``python3 chip_smoke.py --four-cards`` (not run by default; four visible
 GPUs) runs phases 1-2, then phase 9b's cases on ``["cuda:0", ...,
@@ -468,9 +484,11 @@ def check_k3(torch, device, shapes=((128, 128, 128), (48, 41, 75),
     return err
 
 
-def time_k3(torch, device, card, shape, plain=False):
+def time_k3(torch, device, card, shape, plain=False, strides=K3_STRIDES):
     """K3's time per stride on a seeded state of `shape`, beside its bound.
-    Returns {stride: ms} (and the twin's stride-1 time when `plain`)."""
+    Returns {stride: ms} (and, when `plain`, the twin's stride-1 time and
+    "err", the stride-1 round's largest error against the twin, which must
+    be bit-equal)."""
     from sdfgenfast_tpu_torch.ops import vdt_kernel
 
     dx = float(np.float32(0.02))
@@ -478,7 +496,7 @@ def time_k3(torch, device, card, shape, plain=False):
                       n_seed=int(np.prod(shape)) // 40)
     bound, by = k3_bound(shape)
     times = {}
-    for stride in K3_STRIDES:
+    for stride in strides:
         times[stride] = queued_ms(
             torch, lambda: vdt_kernel.round_phase(st, dx, (stride,), 1), 10)
         print(f"[{card}] K3 round {shape} stride {stride}: "
@@ -487,16 +505,31 @@ def time_k3(torch, device, card, shape, plain=False):
     if plain:
         times["plain"] = cuda_ms(torch, lambda: vdt_kernel.round_phase_reference(
             st, dx, (1,), 1), 3)
+        got = vdt_kernel.round_phase(st, dx, (1,), 1)
+        want = vdt_kernel.round_phase_reference(st, dx, (1,), 1)
+        if not torch.equal(bits(torch, got), bits(torch, want)):
+            raise AssertionError(f"K3 {shape} stride 1 differs from its twin")
+        times["err"] = abs_err(got[[0, 1, 2, 4]], want[[0, 1, 2, 4]])
     return times
 
 
 def k3_call_time(torch, device, card, mesh_path, nx, config=None,
                  label="one call"):
     """The summed K3 device time of one generate_from_file call (with
-    `config`, the pipeline's knobs): every phase the far field runs is
-    recorded, then each of its rounds is replayed alone on the round's own
-    input and timed (queued_ms). Returns (ms, launches, per-level list)."""
+    `config`, the pipeline's knobs): :func:`k3_replay_time` of that call.
+    Returns (ms, launches, per-level list)."""
     from sdfgenfast_tpu_torch import generate_from_file
+
+    return k3_replay_time(torch, card, lambda: generate_from_file(
+        mesh_path, nx=nx, device=device, config=config,
+        far_field=config.far_field if config else "exact"), label)
+
+
+def k3_replay_time(torch, card, run, label):
+    """The summed K3 device time of one call of `run`: every phase the far
+    field runs is recorded, then each of its rounds is replayed alone on
+    the round's own input and timed (queued_ms). Returns (ms, launches,
+    per-level list of (level shape, strides, ms per round))."""
     from sdfgenfast_tpu_torch.ops import vdt_kernel
 
     real = vdt_kernel.round_phase
@@ -510,8 +543,7 @@ def k3_call_time(torch, device, card, mesh_path, nx, config=None,
     record.launches = real.launches
     vdt_kernel.round_phase = record
     try:
-        generate_from_file(mesh_path, nx=nx, device=device, config=config,
-                           far_field=config.far_field if config else "exact")
+        run()
     finally:
         vdt_kernel.round_phase = real
         real.launches = record.launches
@@ -544,8 +576,16 @@ def k3_call_time(torch, device, card, mesh_path, nx, config=None,
 def main_path_chamfer_input(torch, device, mesh_path, nx):
     """The field and dx that the main path (``generate_from_file`` on
     `mesh_path` at `nx`) hands to ``vdt_kernel.chamfer``
-    (pipeline.exact_core), taken by wrapping the wrapper for one call."""
+    (pipeline.exact_core): :func:`chamfer_input` of that call."""
     from sdfgenfast_tpu_torch import generate_from_file
+
+    return chamfer_input(lambda: generate_from_file(mesh_path, nx=nx,
+                                                    device=device))
+
+
+def chamfer_input(run):
+    """The field and dx that one call of `run` hands to
+    ``vdt_kernel.chamfer``, taken by wrapping the wrapper for the call."""
     from sdfgenfast_tpu_torch.ops import vdt_kernel
 
     chamfer, seen = vdt_kernel.chamfer, []
@@ -558,7 +598,7 @@ def main_path_chamfer_input(torch, device, mesh_path, nx):
     capture.launches = 0
     vdt_kernel.chamfer = capture
     try:
-        generate_from_file(mesh_path, nx=nx, device=device)
+        run()
     finally:
         vdt_kernel.chamfer = chamfer
     if len(seen) != 1:
@@ -4001,6 +4041,243 @@ def transfer_times(torch, device, card, grids, box, box_grid):
     return out
 
 
+# -- 11. the flagship torus, box64/128 and the port's tools ------------------
+
+
+def flagship_counters():
+    from sdfgenfast_tpu_torch.ops import band_kernel, dense, vdt_kernel
+
+    return (dense.dense_stream, band_kernel.band_coefs, band_kernel.band_rows,
+            vdt_kernel.round_phase, vdt_kernel.chamfer)
+
+
+def pyramid_rounds(grid_shape):
+    """The K3 launches of one default-path call on `grid_shape`: the
+    pyramid's schedule (ops/vdt.py) on the pipeline's axis permutation of
+    the grid; with one level, the ladder alone."""
+    from sdfgenfast_tpu_torch.ops import vdt
+    from sdfgenfast_tpu_torch.pipeline import _vdt_axis_perm
+
+    shape = tuple(grid_shape[p] for p in _vdt_axis_perm(grid_shape))
+    shapes = vdt.pyramid_level_shapes(shape)
+    coarse = len(vdt.stride_ladder(max(shapes[-1]), extra_rounds=1))
+    if len(shapes) == 1:
+        return coarse
+    return (coarse + len(vdt.PYRAMID_COARSE_ROUNDS) * (len(shapes) - 2)
+            + len(vdt.PYRAMID_LEVEL_ROUNDS) + 2)
+
+
+def torus_oracle_phase(torch, device, card):
+    """Phase 11a: torus100k (``torus_mesh()``, 100,352 triangles) through
+    ``generate_sdf`` on bench.py's grids at 256 and 512, its launches
+    checked exactly (K1 0, K2 1 + 1, K3 the pyramid's schedule, K4 1), held
+    to the analytic torus (``testing.torus_bars``): 0 sign mismatches off
+    the tessellation's gap g, the band cells the binning marks exact (the
+    staged run's freeze mask, the staged field bit-equal to this call's)
+    within g + 1e-5 of |s|, no cell below |s| - g - 1e-5, none above |s| +
+    g + 0.2 dx. Returns (mesh, {nx: (grid, launches, bars)})."""
+    from sdfgenfast_tpu_torch import generate_sdf, testing
+    from sdfgenfast_tpu_torch.grid import sizing_mode2a_proportional
+    from sdfgenfast_tpu_torch.mesh import torus_mesh
+    from sdfgenfast_tpu_torch.pipeline import SDFConfig
+    from sdfgenfast_tpu_torch.tools import profile_stages
+    from sdfgenfast_tpu_torch.upload import to_host
+
+    mesh = torus_mesh()
+    gap = testing.tessellation_gap(mesh, device=device)
+    sagitta = 1.8 * (1 - np.cos(np.pi / 224))
+    print(f"torus100k: {mesh.num_tris} triangles, tessellation gap "
+          f"{gap:.4e} (sagitta {sagitta:.4e})", flush=True)
+    if not gap <= sagitta + 1e-7:
+        raise AssertionError(f"torus100k gap {gap} above the sagitta")
+    out = {}
+    for nx in (256, 512):
+        grid = sizing_mode2a_proportional(*mesh.bounds(), nx, 1)
+        for fn in flagship_counters():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        phi = generate_sdf(mesh.verts, mesh.tris, grid.origin, grid.dx,
+                           *grid.shape, device=device)
+        cold = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in flagship_counters()}
+        want = {"dense_stream": 0, "band_coefs": 1, "band_rows": 1,
+                "round_phase": pyramid_rounds(grid.shape), "chamfer": 1}
+        if launches != want:
+            raise AssertionError(f"torus100k {grid.shape}: launches "
+                                 f"{launches}, the schedule gives {want}")
+        if phi.shape != grid.shape or not np.isfinite(phi).all():
+            raise AssertionError(f"torus100k {grid.shape}: bad output")
+        sphi, _, info = profile_stages.staged(mesh, grid, SDFConfig(), device)
+        if not np.array_equal(to_host(sphi).view(np.int32),
+                              phi.view(np.int32)):
+            raise AssertionError(f"torus100k {grid.shape}: the staged run "
+                                 f"differs from generate_sdf")
+        del sphi
+        bars = testing.torus_bars(torch.from_numpy(phi).to(device), grid,
+                                  gap, info["exact"])
+        testing.check_torus_bars(f"torus100k {grid.shape}", bars, gap,
+                                 grid.dx)
+        del info
+        torch.cuda.empty_cache()
+        print(f"torus100k {grid.shape} through generate_sdf: launches "
+              f"{launches}; against the analytic torus 0 sign mismatches "
+              f"off the gap, exact band within {bars['band_dev']:.3e} "
+              f"(gap {gap:.3e}), never below |s| - gap (by "
+              f"{-bars['below']:.3e}), far field above |s| + gap by at most "
+              f"{bars['excess_dx']['hole']:.4f} dx in the hole and "
+              f"{bars['excess_dx']['outside']:.4f} dx outside it; staged run "
+              f"bit-equal; cold call {cold:.3f} s", flush=True)
+        out[nx] = (grid, launches, bars)
+    return mesh, out
+
+
+def box_classes_phase(torch, device):
+    """Phase 11b: box36 at bench.py's box64 and box128 grids through
+    ``generate_sdf`` (one K1 launch each), held as box36 at 256 is in
+    phase 4b: exact on a sample, and the binned path on the same grid never
+    below it and within 0.2 dx."""
+    from sdfgenfast_tpu_torch import generate_sdf
+    from sdfgenfast_tpu_torch.grid import sizing_mode2a_proportional
+    from sdfgenfast_tpu_torch.testing import box36
+
+    box = box36()
+    out = {}
+    for nx in (64, 128):
+        grid = sizing_mode2a_proportional(*box.bounds(), nx, 1)
+        for fn in flagship_counters():
+            fn.launches = 0
+        phi = generate_sdf(box.verts, box.tris, grid.origin, grid.dx,
+                           *grid.shape, device=device)
+        launches = {fn.__name__: fn.launches for fn in flagship_counters()}
+        if launches != {"dense_stream": 1, "band_coefs": 0, "band_rows": 0,
+                        "round_phase": 0, "chamfer": 0}:
+            raise AssertionError(f"box{nx}: launches {launches}")
+        out[nx] = check_dense_vs_binned(torch, device, f"box{nx}", box, grid,
+                                        phi)
+    return out
+
+
+def tools_phase(torch, device, card):
+    """Phase 11c-d: the port's tools on the card. ``tools.bench`` through
+    its command line (a fresh process) on all seven configurations, at
+    least 10 samples each; ``tools.profile_stages`` on box36 at 256,
+    sphere82k at 256 and torus100k at 256 and 512, each staged run
+    bit-equal to its production call; ``tools.batch_bench`` with 4 meshes,
+    the batch bit-equal to the meshes one at a time. Each prints its JSON
+    line. Returns (bench line, profile runs, batch row)."""
+    from sdfgenfast_tpu_torch.tools import batch_bench, bench, profile_stages
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "sdfgenfast_tpu_torch.tools.bench"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=900)
+    sys.stdout.write(r.stderr)
+    if r.returncode != 0:
+        raise AssertionError(f"tools.bench exited {r.returncode}")
+    lines = r.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"tools.bench printed {len(lines)} lines")
+    line = json.loads(lines[0])
+    names = [c[0] for c in bench.CONFIGS]
+    if sorted(line["detail"]) != sorted(names):
+        raise AssertionError(f"tools.bench rows {sorted(line['detail'])}")
+    for name, row in line["detail"].items():
+        if row["n"] < bench.MIN_SAMPLES or row["card"] != card:
+            raise AssertionError(f"tools.bench {name}: {row['n']} samples "
+                                 f"on {row['card']}")
+    print(f"tools.bench in {time.perf_counter() - t0:.1f} s:", flush=True)
+    print("bench " + json.dumps(line), flush=True)
+    runs = []
+    for args in (["256", "box"], ["256", "sphere"], ["256", "512", "torus"]):
+        runs += profile_stages.main(args)["runs"]
+    if not all(run["bit_equal"] for run in runs):
+        raise AssertionError("a staged run differs from its production call")
+    batch = batch_bench.main(["4"])
+    return line, runs, batch
+
+
+def torus_kernel_rows(torch, device, card, mesh, grid, launches):
+    """Phase 11e: K2, K3 and K4 on the torus's main-path inputs at `grid`:
+    K2's coefficient pass and walk on its CSR bit-equal to their twins
+    (check_k2, its bound from this CSR), K3 summed over one call (each round
+    replayed on its own input) and one stride-1 round at the finest level's
+    shape bit-equal to its twin, K4 (2 passes) on the call's own
+    pre-chamfer field bit-equal to its twin. Returns the kernel-table rows
+    (`launches`: phase 11a's counts of the call) and their bounds."""
+    from sdfgenfast_tpu_torch import generate_sdf
+    from sdfgenfast_tpu_torch.ops import vdt_kernel
+
+    def run():
+        generate_sdf(mesh.verts, mesh.tris, grid.origin, grid.dx,
+                     *grid.shape, device=device)
+
+    tag = f"torus100k_{grid.shape[0]}"
+    k2 = check_k2(torch, device, mesh, grid)
+    torch.cuda.empty_cache()
+    k3_ms, k3_n, levels = k3_replay_time(torch, card, run,
+                                         f"torus100k {grid.shape}")
+    if k3_n != launches["round_phase"]:
+        raise AssertionError(f"{tag}: {k3_n} K3 rounds replayed")
+    fine = levels[-1][0]
+    k3 = time_k3(torch, device, card, fine, plain=True, strides=(1,))
+    call_bound = sum(k3_bound(shape)[0] * len(strides)
+                     for shape, strides, _ in levels)
+    torch.cuda.empty_cache()
+    field, dx = chamfer_input(run)
+    got = vdt_kernel.chamfer(field, dx, 2)
+    want = vdt_kernel.chamfer_reference(field, dx, 2)
+    if not torch.equal(bits(torch, got), bits(torch, want)):
+        raise AssertionError(f"{tag}: K4 differs from its twin")
+    k4_err = abs_err(got, want)
+    del got, want
+    k4_ms = queued_ms(torch, lambda: vdt_kernel.chamfer(field, dx, 2), 10)
+    k4_plain = cuda_ms(torch, lambda: vdt_kernel.chamfer_reference(
+        field, dx, 2), 2)
+    n = field.numel()
+    bounds = {f"band_coefs_{tag}": k2["bounds"]["coefs"],
+              f"band_rows_{tag}": k2["bounds"]["walk"],
+              f"vdt_round_{tag}": k3_bound(fine),
+              f"chamfer_{tag}": bound_ms(2 * n * 26 * OPS_CHAMFER_OFFSET,
+                                         8 * n)}
+    del field
+    torch.cuda.empty_cache()
+    k2t = k2["times"]
+    print(f"[{card}] {tag} {grid.shape}: K2 coefficient pass "
+          f"{k2t['coefs']:.4f} ms + walk {k2t['walk']:.4f} ms (bound "
+          f"{bounds[f'band_rows_{tag}'][0]:.4f} ms, {k2['pairs']} (tile, "
+          f"candidate) pairs), row fills {k2t['fills']:.4f} ms; K3 "
+          f"{k3_ms:.4f} ms over one call's {k3_n} rounds (bound "
+          f"{call_bound:.4f} ms), {k3[1]:.4f} ms a stride-1 round at "
+          f"{fine} (bound {bounds[f'vdt_round_{tag}'][0]:.4f} ms); K4 "
+          f"{k4_ms:.4f} ms (bound {bounds[f'chamfer_{tag}'][0]:.4f} ms), "
+          f"plain {k4_plain:.3f} ms", flush=True)
+    src = "sdfgenfast_tpu_torch/csrc/"
+    rows = [
+        {"name": f"band_coefs_{tag}", "route": "cuda",
+         "source": src + "band_rows.cu",
+         "replaces": "sdfgenfast_tpu/ops/band_pallas.py:76",
+         "launches": launches["band_coefs"], "max_abs_err": k2["err"],
+         "ms": k2t["coefs"], "plain_ms": k2t["coefs_plain"]},
+        {"name": f"band_rows_{tag}", "route": "cuda",
+         "source": src + "band_rows.cu",
+         "replaces": "sdfgenfast_tpu/ops/band_pallas.py:76",
+         "launches": launches["band_rows"], "max_abs_err": k2["err"],
+         "ms": k2t["walk"], "plain_ms": k2t["plain"]},
+        {"name": f"vdt_round_{tag}", "route": "cuda",
+         "source": src + "vdt_round.cu",
+         "replaces": "sdfgenfast_tpu/ops/vdt_pallas.py:75",
+         "launches": launches["round_phase"], "max_abs_err": k3["err"],
+         "ms": k3[1], "plain_ms": k3["plain"], "call_ms": k3_ms,
+         "call_bound_ms": call_bound},
+        {"name": f"chamfer_{tag}", "route": "cuda",
+         "source": src + "chamfer.cu",
+         "replaces": "sdfgenfast_tpu/ops/vdt_pallas.py:272",
+         "launches": launches["chamfer"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain},
+    ]
+    return rows, bounds
+
+
 GOLDEN_CASES = {
     256: ("icosphere6.stl", "sphere6_stl_256_mode2a.sparse.npz",
           "far_sample_stride4", 4),
@@ -4454,6 +4731,25 @@ def main():
     transfers["fresh_process_s"] = fresh
     print("transfers " + json.dumps(transfers), flush=True)
 
+    # -- 11. the flagship torus, box64/128 and the port's tools ---------------
+    # after every earlier phase, so that no earlier number moves: torus100k
+    # at 256 and 512 against the analytic torus with exact launches, box64
+    # and box128 against the binned path, tools.bench, profile_stages and
+    # batch_bench, then the torus's kernel-table rows
+    torch.cuda.empty_cache()
+    big_torus, flagship = torus_oracle_phase(torch, device, card)
+    torch.cuda.empty_cache()
+    box_classes_phase(torch, device)
+    torch.cuda.empty_cache()
+    tools_phase(torch, device, card)
+    torus_rows, torus_bounds = [], {}
+    for nx, (tgrid, tlaunches, _) in flagship.items():
+        torch.cuda.empty_cache()
+        rows, b = torus_kernel_rows(torch, device, card, big_torus, tgrid,
+                                    tlaunches)
+        torus_rows += rows
+        torus_bounds.update(b)
+
     # the bounds at the shapes timed (see bound_ms)
     n_box, n_torus = int(np.prod(box_grid.shape)), int(np.prod(torus_grid.shape))
     n_256 = int(np.prod(grids[256][1].shape))
@@ -4658,6 +4954,9 @@ def main():
          "ms": diff_times["box36"]["r1b"],
          "plain_ms": diff_times["box36"]["r1b_twin"]},
     ]
+    # the flagship torus's rows (phase 11e), each with its own call's launches
+    kernels += torus_rows
+    bounds.update(torus_bounds)
     # the launches each new route made (phase 4e), beside the main path's
     by_route = {"band_coefs": "band_coefs", "band_rows": "band_rows",
                 "vdt_round": "round_phase", "chamfer": "chamfer",

@@ -284,7 +284,7 @@ band_coefs.launches = 0
 def _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, cids,
                  coord_tiles_dim, coord_grid_shape):
     """One launch of the tile walk into `rows` (the kernel writes every
-    active tile's row whole)."""
+    active tile's row whole), counted in ``band_rows.launches``."""
     with torch.cuda.device(coef.device):
         build.check(build.library().sdf_band_rows(
             coef.data_ptr(), coef.shape[0], pair.data_ptr(), ids.data_ptr(),
@@ -293,6 +293,7 @@ def _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, cids,
             int(sum(coord_grid_shape)), float(dx),
             *(r.data_ptr() for r in rows),
             torch.cuda.current_stream().cuda_stream), "sdf_band_rows")
+    band_rows.launches += 1
 
 
 def band_rows(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim, grid_shape,
@@ -331,7 +332,6 @@ def band_rows(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim, grid_shape,
     coef = band_coefs(tri9)
     _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, cids, ctd,
                  cgs)
-    band_rows.launches += 1
     return rows
 
 

@@ -1,9 +1,8 @@
 """Point-triangle distance in PyTorch (float32): the structure-of-arrays
 form and the stacked (..., 3) form.
 
-Counterpart of ``point_triangle_distance_sq_soa``, ``gather_tri9``,
-``point_segment_distance_sq`` and ``point_triangle_distance_sq`` in
-``sdfgenfast_tpu/ops/geometry.py``: the reference's case analysis and
+Counterpart of ``sdfgenfast_tpu/ops/geometry.py`` (every name of its
+``__all__``): the reference's case analysis and
 clamping (``point_segment_distance`` / ``point_triangle_distance``,
 cpu_lib/makelevelset3.cpp:21-70) as branchless tensor code. The SoA form is
 the per-triangle body of the recompute kernel R1 (``csrc/recompute.cu``) and
@@ -23,8 +22,11 @@ from __future__ import annotations
 
 import torch
 
+from .vdt import sqrt_f32
+
 __all__ = ["gather_tri9", "point_segment_distance_sq",
-           "point_triangle_distance_sq", "point_triangle_distance_sq_soa"]
+           "point_triangle_distance_sq", "point_triangle_distance_sq_soa",
+           "point_triangle_distance", "closest_point_weights"]
 
 
 def _d3(ux, uy, uz, vx, vy, vz):
@@ -146,3 +148,52 @@ def point_triangle_distance_sq(x0, x1, x2, x3):
         torch.where(w31 > 0.0, torch.minimum(d12, d23),
                     torch.minimum(d13, d23)))
     return torch.where(inside, d_in, d_edge)
+
+
+def point_triangle_distance(x0, x1, x2, x3):
+    """Distance from points x0 to triangles (x1, x2, x3): the correctly
+    rounded square root of :func:`point_triangle_distance_sq`."""
+    return sqrt_f32(point_triangle_distance_sq(x0, x1, x2, x3))
+
+
+def _segment_weight(x0, x1, x2):
+    d = x2 - x1
+    return _clip01(_dot(x2 - x0, d) / _at_least(_dot(d, d), 1e-30))
+
+
+def closest_point_weights(x0, x1, x2, x3):
+    """Barycentric weights (w1, w2, w3) of the closest point on each
+    triangle, closest = w1 * x1 + w2 * x2 + w3 * x3, with the region
+    selection of :func:`point_triangle_distance_sq`: the plane weights
+    inside, else the weights along the nearer of the two edges the case
+    names (the first at a tie). At region boundaries the closest point is
+    continuous, so any consistent choice gives a valid (sub)gradient."""
+    w23, w31, w12, inside = _triangle_case(x0, x1, x2, x3)
+    s12 = _segment_weight(x0, x1, x2)  # the weight on x1 along (x1, x2)
+    s13 = _segment_weight(x0, x1, x3)
+    s23 = _segment_weight(x0, x2, x3)
+    d12 = point_segment_distance_sq(x0, x1, x2)
+    d13 = point_segment_distance_sq(x0, x1, x3)
+    d23 = point_segment_distance_sq(x0, x2, x3)
+    dt = x0.dtype
+    zeros = torch.zeros_like(s12)
+
+    def edge_weights(sel12, sel13, sel23):
+        # a one-hot choice of edge -> its barycentric triple
+        return (sel12 * s12 + sel13 * s13,
+                sel12 * (1.0 - s12) + sel23 * s23,
+                sel13 * (1.0 - s13) + sel23 * (1.0 - s23))
+
+    use12_a = (d12 <= d13).to(dt)  # region w23 > 0: edges 12 and 13
+    use12_b = (d12 <= d23).to(dt)  # region w31 > 0: edges 12 and 23
+    use13_c = (d13 <= d23).to(dt)  # otherwise: edges 13 and 23
+    wa = edge_weights(use12_a, 1.0 - use12_a, zeros)
+    wb = edge_weights(use12_b, zeros, 1.0 - use12_b)
+    wc = edge_weights(zeros, use13_c, 1.0 - use13_c)
+    a, b = w23 > 0.0, w31 > 0.0
+    in_a = (a & ~inside).to(dt)
+    in_b = (b & ~a & ~inside).to(dt)
+    in_c = (~a & ~b & ~inside).to(dt)
+    ins = inside.to(dt)
+    return tuple(ins * w + in_a * ea + in_b * eb + in_c * ec
+                 for w, ea, eb, ec in zip((w23, w31, w12), wa, wb, wc))
