@@ -118,12 +118,26 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      production call; (d) ``tools.batch_bench`` with 4 meshes, the batch
      bit-equal to the meshes one at a time; (e) K2, K3 and K4 on the
      torus's own inputs at both grids against their twins, timed beside
-     their bounds (from the torus's CSR), as kernel-table rows.
+     their bounds (from the torus's CSR), as kernel-table rows;
+ 12. the last of the JAX package's tools, after every phase above: (a)
+     ``tools.stress_256`` through its command line (a fresh process): 10
+     iterations of sphere82k at 256^3, each bit-identical to the first,
+     the caching allocator's reserved and allocated bytes and the pinned
+     memory flat from the second iteration; (b) ``tools.kernel_bench`` on
+     the 12-triangle box at 64, 128 and 256, the queued outputs bit-equal
+     to ``pipeline.dense_sign_core``, each stage on the host clock, CUDA
+     events and queued behind a spin; (c) ``tools.scaling_bench`` at 128^3
+     on 1, 2 and 4 shards of this card, each bit-equal to one shard and to
+     the single-device call.
 
 ``python3 chip_smoke.py --four-cards`` (not run by default; four visible
 GPUs) runs phases 1-2, then phase 9b's cases on ``["cuda:0", ...,
 "cuda:3"]`` in one process and in four NCCL processes (one card each),
-each bit-equal to the one-card run on ``["cuda:0"] * 4``.
+each bit-equal to the one-card run on ``["cuda:0"] * 4``; then
+``tools.scaling_bench`` at 128^3 and 512^3 on 1, 2 and 4 shards of cuda:0
+and on 1, 2 and 4 distinct cards, every count bit-equal to one card, and a
+profile of one sharded call at 512^3 on four cards and on four shards of
+cuda:0 (each card's busy share, the host's largest self times).
 
 Prints one JSON line of per-kernel results, then the card line, then, as the
 last line, ``{"ok": true, "device": {...}}``. Exits non-zero on any failure.
@@ -3476,7 +3490,8 @@ def four_cards():
     from sdfgenfast_tpu_torch.kernels import build
     from sdfgenfast_tpu_torch.parallel import (bin_mesh_sharded,
                                                make_device_mesh, sharded_sdf)
-    from sdfgenfast_tpu_torch.pipeline import SDFConfig
+    from sdfgenfast_tpu_torch.pipeline import (SDFConfig, bin_mesh,
+                                               make_level_set3)
 
     require_cuda()
     if torch.cuda.device_count() < 4:
@@ -3535,6 +3550,31 @@ def four_cards():
               + (f", generate_sdf_batch wall "
                  f"{max(r['wall_ms'] for r in rs):.1f} ms"
                  if "wall_ms" in rs[0] else ""), flush=True)
+    # tools.scaling_bench on 1, 2 and 4 distinct cards beside 1, 2 and 4
+    # shards of cuda:0, each bit-equal to one card; then where the host
+    # waits in one sharded call at 512^3 on four cards and on one
+    from sdfgenfast_tpu_torch.tools import scaling_bench
+
+    torch.cuda.empty_cache()
+    cards = [torch.device("cuda", r) for r in range(4)]
+    scaling_phase(torch, {
+        "one_card": [[cards[0]] * d for d in (1, 2, 4)],
+        "cards": [cards[:d] for d in (1, 2, 4)]}, (128, 512))
+    mesh, grid, cfg = scaling_bench.case(512)
+    binned = bin_mesh(mesh, grid, cfg, device=cards[0])
+    runs = {"one device (make_level_set3)": lambda: make_level_set3(
+        mesh, grid, cfg, binned, device=cards[0])}
+    for label, devs in (("cuda:0 x 1", cards[:1]),
+                        ("cuda:0 x 4", [cards[0]] * 4),
+                        ("cuda:0-3", cards)):
+        dm = make_device_mesh(devs)
+        sb = bin_mesh_sharded(mesh, grid, dm.devices.shape, cfg)
+        runs[label] = (lambda sb, dm: lambda: sharded_sdf(
+            sb, dm, verts=mesh.verts))(sb, dm)
+    for label, fn in runs.items():
+        torch.cuda.empty_cache()
+        print(f"[{card}] profile of one call at 512^3, {label}: "
+              + json.dumps(host_waits(torch, fn, cards)), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4278,6 +4318,139 @@ def torus_kernel_rows(torch, device, card, mesh, grid, launches):
     return rows, bounds
 
 
+# -- 12. the last JAX tools: stress_256, kernel_bench, scaling_bench ----------
+
+
+def stress_phase(card):
+    """Phase 12a: ``tools.stress_256`` through its command line in a fresh
+    process (its memory readings start from nothing): 10 iterations of
+    sphere82k at 256^3, bit-identical, every memory reading flat from the
+    second iteration (the tool raises on growth)."""
+    from sdfgenfast_tpu_torch.tools.stress_256 import MEMORY
+
+    r = subprocess.run([sys.executable, "-m",
+                        "sdfgenfast_tpu_torch.tools.stress_256", "10"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    sys.stdout.write(r.stderr)
+    lines = r.stdout.strip().splitlines()
+    sys.stdout.write("".join(s + "\n" for s in lines[:-1]))
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"tools.stress_256 exited {r.returncode}")
+    line = json.loads(lines[-1])
+    mem = line["memory"]
+    if (line["iterations"] != 10 or not line["bit_identical"]
+            or line["card"] != card
+            or any(len(mem[k]) != 10 for k in MEMORY)
+            or False in line["memory_flat_from_second"].values()):
+        raise AssertionError(f"tools.stress_256: {line}")
+    print("stress " + json.dumps(line), flush=True)
+    return line
+
+
+def kernel_bench_phase(torch, device):
+    """Phase 12b: ``tools.kernel_bench`` at 64, 128 and 256 on the
+    12-triangle box; at each size the last queued outputs (phi, ids and
+    the signed field) bit-equal to ``pipeline.dense_sign_core`` on the
+    same blob, and every stage timed on three clocks."""
+    from sdfgenfast_tpu_torch.grid import sizing_mode2a_proportional
+    from sdfgenfast_tpu_torch.mesh import box_mesh
+    from sdfgenfast_tpu_torch.ops import dense
+    from sdfgenfast_tpu_torch.pipeline import bin_mesh, dense_sign_core
+    from sdfgenfast_tpu_torch.tools import kernel_bench
+
+    box = box_mesh((3, 4, 5), (-1, -1, -1))
+    dense.dense_stream.launches = 0
+    line, outs = kernel_bench.run(box, [64, 128, 256], device)
+    if dense.dense_stream.launches < 3 * (2 * kernel_bench.REPS + 1):
+        raise AssertionError(f"kernel_bench: {dense.dense_stream.launches} "
+                             f"K1 launches")
+    for row in line["rows"]:
+        nx = row["nx"]
+        grid = sizing_mode2a_proportional(*box.bounds(), nx, 1)
+        a = bin_mesh(box, grid, device=device).device.arrays
+        want, want_tid = dense_sign_core(
+            a["verts"], a["tris"], a.get("parity", a.get("crossings")),
+            a["origin"], grid.dx, grid_shape=grid.shape)
+        phi, tid, signed = outs[nx]
+        if not (torch.equal(bits(torch, signed), bits(torch, want))
+                and torch.equal(tid, want_tid)
+                and torch.equal(bits(torch, phi), bits(torch, want.abs()))):
+            raise AssertionError(f"kernel_bench Nx {nx}: differs from "
+                                 "dense_sign_core")
+        if None in (row["dense_kernel_device_ms"],
+                    row["unpack_sign_device_ms"]):
+            raise AssertionError(f"kernel_bench Nx {nx}: no device clock")
+    print("kernel_bench " + json.dumps(line), flush=True)
+    return line
+
+
+def scaling_phase(torch, lists, sizes):
+    """Phase 12c (one card) and the four-card scaling: ``tools.
+    scaling_bench`` at each Nx of `sizes` over `lists` ({table: [device
+    list of each d]}); the tool raises unless every d is bit-equal to
+    d = 1, every table to the first and to the single-device call."""
+    from sdfgenfast_tpu_torch.tools import scaling_bench
+
+    lines = {}
+    for nx in sizes:
+        torch.cuda.empty_cache()
+        line, _ = scaling_bench.run(*scaling_bench.case(nx), lists)
+        print(f"scaling {nx} " + json.dumps(line), flush=True)
+        lines[nx] = line
+    return lines
+
+
+def host_waits(torch, fn, devices):
+    """torch.profiler over one call of `fn` (warm, ending in a synchronize
+    of every device in `devices`): each device's busy share of the call's
+    wall (the union of its kernels' and copies' intervals), the host ops
+    with the most self CPU time and the kernels with the most device time
+    (summed over the devices)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdfgenfast_tpu_torch.tools.profile_stages import (
+        _short as short_kernel, union_us)
+
+    def call():
+        fn()
+        for d in devices:
+            torch.cuda.synchronize(d)
+
+    call()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA
+                and e.time_range.end > e.time_range.start):
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+    busy = {f"cuda:{index}": round(union_us(s) / wall_us, 4)
+            for index, s in sorted(spans.items())}
+    averages = prof.key_averages()
+    host = sorted((e for e in averages if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:10]
+    kernels = {}
+    for e in averages:
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.device_type == DeviceType.CUDA and us > 0:
+            k = kernels.setdefault(short_kernel(e.key), [0.0, 0])
+            k[0] += us / 1e3
+            k[1] += e.count
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": round(wall_us / 1e3, 3),
+            "busy_share": busy or "not measured",
+            "host_self_ms": {e.key: [round(e.self_cpu_time_total / 1e3, 3),
+                                     e.count] for e in host},
+            "device_ms": {name: [round(ms, 3), n] for name, (ms, n) in top}}
+
+
 GOLDEN_CASES = {
     256: ("icosphere6.stl", "sphere6_stl_256_mode2a.sparse.npz",
           "far_sample_stride4", 4),
@@ -4749,6 +4922,19 @@ def main():
                                     tlaunches)
         torus_rows += rows
         torus_bounds.update(b)
+
+    # -- 12. stress_256, kernel_bench and scaling_bench ----------------------
+    # after every earlier phase, so that no earlier number moves: the
+    # repeat-stress with its memory readings, the queued dense stages
+    # against dense_sign_core, the sharded path on 1, 2 and 4 shards of
+    # this card against one
+    from sdfgenfast_tpu_torch.tools.scaling_bench import device_lists
+
+    torch.cuda.empty_cache()
+    stress_phase(card)
+    torch.cuda.empty_cache()
+    kernel_bench_phase(torch, device)
+    scaling_phase(torch, device_lists(device), (128,))
 
     # the bounds at the shapes timed (see bound_ms)
     n_box, n_torus = int(np.prod(box_grid.shape)), int(np.prod(torus_grid.shape))

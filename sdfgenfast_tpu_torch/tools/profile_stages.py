@@ -228,19 +228,12 @@ def device_profile(fn, device) -> dict:
         fn()
         sync(device)
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA
+             and e.time_range.end > e.time_range.start]
     if not spans:
         return {"busy_share": "not measured", "kernels": "not measured"}
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy += hi - lo
-            lo, hi = a, b
-        else:
-            hi = max(hi, b)
-    busy += hi - lo
+    busy = union_us(spans)
     kernels = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -258,6 +251,19 @@ def device_profile(fn, device) -> dict:
             "kernels": {name: {"ms": round(k["ms"], 4), "calls": k["calls"]}
                         for name, k in sorted(kernels.items(),
                                               key=lambda kv: -kv[1]["ms"])}}
+
+
+def union_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    spans = sorted(spans)
+    total, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            total += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return total + hi - lo
 
 
 def _short(name: str) -> str:
