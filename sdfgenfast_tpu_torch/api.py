@@ -30,6 +30,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import tracing
 from .grid import GridSpec, sizing_python_api
 from .io import mesh_io as _mesh_io
 from .io import sdf_io as _sdf_io
@@ -135,9 +136,11 @@ def generate_sdf(
     grid = GridSpec(tuple(float(v) for v in origin), float(dx),
                     (int(nx), int(ny), int(nz)))
     mesh = Mesh(vertices, triangles)
-    phi = make_level_set3(mesh, grid, _config(config, exact_band, far_field),
-                          device=dev)
-    return to_host(phi)
+    with tracing.span("sdf.generate_sdf"):
+        phi = make_level_set3(mesh, grid,
+                              _config(config, exact_band, far_field),
+                              device=dev)
+        return to_host(phi)
 
 
 def generate_sdf_batch(

@@ -40,7 +40,7 @@ from ..kernels import build
 from .vdt import sqrt_f32
 
 __all__ = ["DENSE_MAX_TRIS", "dense_distance_field", "dense_sep_reference",
-           "dense_stream"]
+           "dense_stream", "sep_table"]
 
 # The JAX package's gate: above DENSE_MAX_TRIS the binned path wins (dense
 # cost grows as cells x triangles).
@@ -194,6 +194,25 @@ def dense_stream(coef, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
 dense_stream.launches = 0
 
 
+def sep_table(tri_verts, origin):
+    """K1's (40, M) table of the (M, 3, 3) float32 `tri_verts` in grid-local
+    coordinates (less `origin`, a (3,) tensor or sequence); ValueError above
+    DENSE_MAX_TRIS triangles."""
+    if (tri_verts.dtype != torch.float32 or tri_verts.dim() != 3
+            or tuple(tri_verts.shape[1:]) != (3, 3)):
+        raise ValueError(f"tri_verts must be (M, 3, 3) float32, got "
+                         f"{tuple(tri_verts.shape)} {tri_verts.dtype}")
+    m = int(tri_verts.shape[0])
+    if m > DENSE_MAX_TRIS:
+        raise ValueError(
+            f"dense path capped at {DENSE_MAX_TRIS} triangles, got {m}")
+    origin = torch.as_tensor(origin, dtype=torch.float32,
+                             device=tri_verts.device)
+    # grid-local coordinates: coefficients stay O(mesh extent), not
+    # O(|origin|), for meshes far from the world origin
+    return _sep_coefs(tri_verts - origin).contiguous()
+
+
 def dense_distance_field(tri_verts, origin, dx, *, grid_shape, ijk_offset=None):
     """Exact min distance and lowest-id closest triangle of every cell.
 
@@ -203,21 +222,8 @@ def dense_distance_field(tri_verts, origin, dx, *, grid_shape, ijk_offset=None):
     (ni, nj, nk) float32 unsigned distances and int32 ids, on the device of
     tri_verts. One K1 launch for M <= 1024, ValueError above.
     """
-    if (tri_verts.dtype != torch.float32 or tri_verts.dim() != 3
-            or tuple(tri_verts.shape[1:]) != (3, 3)):
-        raise ValueError(f"tri_verts must be (M, 3, 3) float32, got "
-                         f"{tuple(tri_verts.shape)} {tri_verts.dtype}")
-    m = int(tri_verts.shape[0])
-    if m > DENSE_MAX_TRIS:
-        raise ValueError(
-            f"dense path capped at {DENSE_MAX_TRIS} triangles, got {m}")
+    table = sep_table(tri_verts, origin)
     grid_shape = tuple(int(n) for n in grid_shape)
     off = (0, 0, 0) if ijk_offset is None else tuple(int(v) for v in ijk_offset)
-    dx = float(np.float32(float(dx)))
-    origin = torch.as_tensor(origin, dtype=torch.float32,
-                             device=tri_verts.device)
-    # grid-local coordinates: coefficients stay O(mesh extent), not
-    # O(|origin|), for meshes far from the world origin
-    tri_local = tri_verts - origin
-    kw = dict(grid_shape=grid_shape, ijk_offset=off)
-    return dense_stream(_sep_coefs(tri_local).contiguous(), dx, **kw)
+    return dense_stream(table, float(np.float32(float(dx))),
+                        grid_shape=grid_shape, ijk_offset=off)

@@ -45,6 +45,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import build
 from .geometry import (_at_least, _d3, gather_tri9,
                        point_triangle_distance_sq_soa)
@@ -397,15 +398,20 @@ class _RecomputePhi(torch.autograd.Function):
         ctx.save_for_backward(tri_verts, tid, parity)
         ctx.origin, ctx.dx, ctx.upper = origin, dx, upper
         ctx.ijk_offset = ijk_offset
-        return recompute_forward(tri_verts.detach(), tid, parity, origin, dx,
-                                 upper, ijk_offset=ijk_offset)
+        with tracing.span("sdf.recompute.forward", tid.device):
+            return recompute_forward(tri_verts.detach(), tid, parity, origin,
+                                     dx, upper, ijk_offset=ijk_offset)
 
     @staticmethod
     def backward(ctx, grad_phi):
         tri_verts, tid, parity = ctx.saved_tensors
-        grad = recompute_backward(tri_verts, tid, parity,
-                                  grad_phi.contiguous(), ctx.origin, ctx.dx,
-                                  ctx.upper, ijk_offset=ctx.ijk_offset)
+        # for CUDA tensors autograd runs this on its device thread, where
+        # no span is open: a root span
+        with tracing.span("sdf.recompute.backward", tid.device):
+            grad = recompute_backward(tri_verts, tid, parity,
+                                      grad_phi.contiguous(), ctx.origin,
+                                      ctx.dx, ctx.upper,
+                                      ijk_offset=ctx.ijk_offset)
         return grad, None, None, None, None, None, None
 
 

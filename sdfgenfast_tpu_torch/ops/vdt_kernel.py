@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..kernels import build
 from .vdt import _jacobi_round, _level_pos_axes, chamfer_relax, chamfer_steps
 
@@ -67,9 +68,16 @@ def round_phase(state, dx: float, strides, scale: int = 1, pos_offset=None):
     zeros) is the global level index of local cell (0, 0, 0): a shard's
     halo-extended block scores its donors at global positions. CUDA: one
     K3 launch per stride into ping-pong buffers (the input is not
-    modified). CPU: :func:`round_phase_reference`."""
+    modified). CPU: :func:`round_phase_reference`. One ``sdf.k3`` span a
+    call."""
     _check_state(state)
     off = _offset(pos_offset)
+    with tracing.span("sdf.k3", state.device):
+        return _rounds(state, dx, strides, scale, off)
+
+
+def _rounds(state, dx: float, strides, scale: int, off):
+    """:func:`round_phase` after the checks."""
     if state.device.type == "cpu":
         return round_phase_reference(state, dx, strides, scale, off)
     if state.device.type != "cuda":

@@ -77,7 +77,7 @@ from .ops import sweep as sweep_ops
 from .ops import tiled as tiled_ops
 from .ops import vdt as vdt_ops
 from .ops import vdt_kernel
-from . import upload
+from . import tracing, upload
 
 __all__ = ["SDFConfig", "Binned", "bin_mesh", "binned_from_arrays",
            "check_supported", "dense_sign_core", "exact_core",
@@ -312,19 +312,28 @@ def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
     the port does not. `min_cross_rows` pads the crossings transport's row
     count. With a `device`, the binning and the mesh's vertices go up to it
     as one blob, kept in ``Binned.device``."""
+    with tracing.span("sdf.bin_mesh"):
+        binned = _bin_host(mesh, grid, config, min_cross_rows)
+        with tracing.span("sdf.bin.upload"):
+            return _uploaded(binned, mesh.verts, device)
+
+
+def _bin_host(mesh: Mesh, grid: GridSpec, config: SDFConfig,
+              min_cross_rows: int) -> Binned:
+    """:func:`bin_mesh` without the upload."""
     mesh.validate_indices()
     check_supported(config, len(mesh.tris))
     packed = cross = sign = None
-    if config.sign_mode == "host":
-        packed, cross = _host_parity_choose(
-            mesh, grid, config.parity_transport, min_cross_rows)
-    else:
-        sign = _sign_binning(mesh, grid, config)
+    with tracing.span("sdf.bin.parity", ranged=True):
+        if config.sign_mode == "host":
+            packed, cross = _host_parity_choose(
+                mesh, grid, config.parity_transport, min_cross_rows)
+        else:
+            sign = _sign_binning(mesh, grid, config)
     tris = mesh.tris.astype(np.int32)
     if use_dense(config, len(mesh.tris)):
-        return _uploaded(Binned(grid, config, tris, parity_packed=packed,
-                                parity_crossings=cross, sign=sign),
-                         mesh.verts, device)
+        return Binned(grid, config, tris, parity_packed=packed,
+                      parity_crossings=cross, sign=sign)
     # the exact far field: a >=3-cell seed band makes the 27-neighbourhood
     # union cover the true closest triangle for near-band cells; the
     # propagate/eikonal modes bin the band itself, unpruned (they rely on
@@ -332,31 +341,32 @@ def bin_mesh(mesh: Mesh, grid: GridSpec, config: SDFConfig = SDFConfig(),
     exact = config.far_field == "exact"
     seed_band = max(config.exact_band, 3) if exact else config.exact_band
     tile_shape = tuple(int(v) for v in config.tile_shape)
-    bb = band_ops.bin_triangles(mesh.verts, mesh.tris, grid, seed_band,
-                                tile_shape, prune=exact)
-    T = int(np.prod(bb.tiles_dim))
-    A_pad = _bucket(bb.num_active)
-    ids = np.pad(bb.active_ids, (0, A_pad - bb.num_active))
-    ids[bb.num_active:] = T
-    if not reads_csr(config):
-        pad = ((0, A_pad - bb.num_active), (0, 0))
-        return _uploaded(Binned(
-            grid, config, tris, bb.tiles_dim, None, packed, cross, seed_band,
-            tile_shape, active_ids=ids, cand=np.pad(bb.cand, pad),
-            cand_valid=np.pad(bb.cand_valid, pad), sign=sign),
-            mesh.verts, device)
-    pair, off, cnt = band_kernel.band_csr_from_binning(
-        bb.cand, bb.cand_valid, int(len(mesh.tris)))
-    off = np.pad(off, (0, A_pad - len(off)))
-    cnt = np.pad(cnt, (0, A_pad - len(cnt)))
-    P_pad = _bucket(len(pair), minimum=128)
-    pair = np.pad(pair, (0, P_pad - len(pair)),
-                  constant_values=len(mesh.tris))
-    kcap = max(-(-int(cnt.max() or 1) // 64) * 64, 64)
+    with tracing.span("sdf.bin.band", ranged=True):
+        bb = band_ops.bin_triangles(mesh.verts, mesh.tris, grid, seed_band,
+                                    tile_shape, prune=exact)
+        T = int(np.prod(bb.tiles_dim))
+        A_pad = _bucket(bb.num_active)
+        ids = np.pad(bb.active_ids, (0, A_pad - bb.num_active))
+        ids[bb.num_active:] = T
+        if not reads_csr(config):
+            pad = ((0, A_pad - bb.num_active), (0, 0))
+            return Binned(
+                grid, config, tris, bb.tiles_dim, None, packed, cross,
+                seed_band, tile_shape, active_ids=ids,
+                cand=np.pad(bb.cand, pad),
+                cand_valid=np.pad(bb.cand_valid, pad), sign=sign)
+    with tracing.span("sdf.bin.csr", ranged=True):
+        pair, off, cnt = band_kernel.band_csr_from_binning(
+            bb.cand, bb.cand_valid, int(len(mesh.tris)))
+        off = np.pad(off, (0, A_pad - len(off)))
+        cnt = np.pad(cnt, (0, A_pad - len(cnt)))
+        P_pad = _bucket(len(pair), minimum=128)
+        pair = np.pad(pair, (0, P_pad - len(pair)),
+                      constant_values=len(mesh.tris))
+        kcap = max(-(-int(cnt.max() or 1) // 64) * 64, 64)
     csr = {"pair": pair, "off": off, "cnt": cnt, "kcap": kcap, "ids": ids}
-    return _uploaded(Binned(grid, config, tris, bb.tiles_dim, csr, packed,
-                            cross, seed_band, tile_shape, sign=sign),
-                     mesh.verts, device)
+    return Binned(grid, config, tris, bb.tiles_dim, csr, packed, cross,
+                  seed_band, tile_shape, sign=sign)
 
 
 def binned_from_arrays(grid: GridSpec, config: SDFConfig, *, tris,
@@ -451,10 +461,19 @@ def dense_sign_core(verts, tris, parity_data, origin, dx: float, *,
     crossings or the bool field), origin (3,) f32, all on one device; dx a
     float32-representable float. Returns (signed phi, tid), each
     (ni, nj, nk)."""
-    phi, tid = dense_ops.dense_distance_field(
-        verts[tris.long()], origin, dx, grid_shape=grid_shape)
-    parity = _parity_device(parity_data, grid_shape[0])
-    return torch.where(parity, -phi, phi), tid
+    with tracing.span("sdf.dense.table", verts.device):
+        table = dense_ops.sep_table(verts[tris.long()], origin)
+    with tracing.span("sdf.dense.k1", verts.device):
+        phi, tid = dense_ops.dense_stream(
+            table, float(np.float32(dx)),
+            grid_shape=tuple(int(n) for n in grid_shape))
+    return _signed(phi, parity_data, grid_shape[0]), tid
+
+
+def _signed(phi, parity_data, ni: int):
+    """`phi` negated inside, by the parity of `parity_data`."""
+    with tracing.span("sdf.sign", phi.device):
+        return torch.where(_parity_device(parity_data, ni), -phi, phi)
 
 
 def _band_k2(tri_local, band, dx: float, *, grid_shape, tiles_dim, **coord):
@@ -514,43 +533,47 @@ def exact_core(verts, tris, band, parity_data, origin, dx: float, *,
     :func:`ladder_schedule`'s (strides, jacobi), or None for the pyramid.
     Returns (signed phi, tid), each (ni, nj, nk).
     """
-    tri_verts = verts[tris.long()]
-    if tuple(tile_shape) == (8, 8, 8):
-        phi0, tid0, cps = _band_k2(tri_verts - origin, band, dx,
-                                   grid_shape=grid_shape, tiles_dim=tiles_dim)
-    else:
-        phi0, tid0, cps = _band_tiles(
-            tri_verts, band, origin, dx, grid_shape=grid_shape,
-            tile_shape=tuple(tile_shape), tiles_dim=tiles_dim,
-            chunk=band_chunk)
-    freeze = (tid0 >= 0) & (phi0 <= float(np.float32(seed_band)
-                                          * np.float32(dx)))
+    device = verts.device
+    with tracing.span("sdf.band", device):
+        tri_verts = verts[tris.long()]
+        if tuple(tile_shape) == (8, 8, 8):
+            phi0, tid0, cps = _band_k2(tri_verts - origin, band, dx,
+                                       grid_shape=grid_shape,
+                                       tiles_dim=tiles_dim)
+        else:
+            phi0, tid0, cps = _band_tiles(
+                tri_verts, band, origin, dx, grid_shape=grid_shape,
+                tile_shape=tuple(tile_shape), tiles_dim=tiles_dim,
+                chunk=band_chunk)
+        freeze = (tid0 >= 0) & (phi0 <= float(np.float32(seed_band)
+                                              * np.float32(dx)))
 
-    if ladder is not None:
-        strides, jacobi = ladder
-        phi, tid = vdt_ops.vdt_far_field(
-            *cps, tid0, phi0, dx, strides, freeze_mask=freeze, jacobi=jacobi,
-            phase=vdt_kernel.round_phase)
-    else:
-        # the JAX package's axis permutation (see _vdt_axis_perm)
-        perm = _vdt_axis_perm(grid_shape)
-        inv = tuple(int(v) for v in np.argsort(perm))
+    with tracing.span("sdf.far_field", device):
+        if ladder is not None:
+            strides, jacobi = ladder
+            phi, tid = vdt_ops.vdt_far_field(
+                *cps, tid0, phi0, dx, strides, freeze_mask=freeze,
+                jacobi=jacobi, phase=vdt_kernel.round_phase)
+        else:
+            # the JAX package's axis permutation (see _vdt_axis_perm)
+            perm = _vdt_axis_perm(grid_shape)
+            inv = tuple(int(v) for v in np.argsort(perm))
 
-        def t(x):
-            return x.permute(perm).contiguous()
+            def t(x):
+                return x.permute(perm).contiguous()
 
-        phi_p, tid_p = vdt_ops.vdt_pyramid_far_field(
-            t(cps[perm[0]]), t(cps[perm[1]]), t(cps[perm[2]]), t(tid0),
-            t(phi0), dx, freeze_mask=t(freeze),
-            # extra_polish=2 is the JAX package's _exact_core default
-            extra_polish=2, phase=vdt_kernel.round_phase)
-        phi = phi_p.permute(inv).contiguous()
-        tid = tid_p.permute(inv).contiguous()
+            phi_p, tid_p = vdt_ops.vdt_pyramid_far_field(
+                t(cps[perm[0]]), t(cps[perm[1]]), t(cps[perm[2]]), t(tid0),
+                t(phi0), dx, freeze_mask=t(freeze),
+                # extra_polish=2 is the JAX package's _exact_core default
+                extra_polish=2, phase=vdt_kernel.round_phase)
+            phi = phi_p.permute(inv).contiguous()
+            tid = tid_p.permute(inv).contiguous()
 
     if chamfer_passes > 0:
-        phi = vdt_kernel.chamfer(phi, dx, chamfer_passes)
-    parity = _parity_device(parity_data, grid_shape[0])
-    return torch.where(parity, -phi, phi), tid
+        with tracing.span("sdf.chamfer", device):
+            phi = vdt_kernel.chamfer(phi, dx, chamfer_passes)
+    return _signed(phi, parity_data, grid_shape[0]), tid
 
 
 def sweep_core(tri_verts, band, parity_data, origin, dx: float, *, mode,
@@ -667,6 +690,14 @@ def make_level_set3(mesh: Mesh, grid: GridSpec,
     check_supported(config, len(mesh.tris))
     if binned is None:
         binned = bin_mesh(mesh, grid, config, device=device)
+    with tracing.span("sdf.make_level_set3", device):
+        return _level_set3(mesh, grid, config, binned, device, verts,
+                           return_tid)
+
+
+def _level_set3(mesh: Mesh, grid: GridSpec, config: SDFConfig,
+                binned: Binned, device: torch.device, verts, return_tid):
+    """:func:`make_level_set3` on `binned`, after the checks."""
     dense = use_dense(config, len(mesh.tris))
     band_names, sign_names = _call_names(binned, config, dense)
     if verts is not None:
@@ -715,7 +746,8 @@ def make_level_set3(mesh: Mesh, grid: GridSpec,
                 eikonal_iters=config.eikonal_iters)
     if verts is not None or config.far_field != "exact":
         if config.far_field == "exact":
-            parity_b = _parity_device(parity, grid.shape[0])
+            with tracing.span("sdf.sign", device):
+                parity_b = _parity_device(parity, grid.shape[0])
         phi = recompute_ops.recompute_stage(
             v[tris.long()], tid, parity_b,
             np.asarray(grid.origin, np.float32), dx)

@@ -48,6 +48,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import tracing
+
 __all__ = ["CHUNK_BYTES", "RING_SLOTS", "DeviceBlob", "Download",
            "canonical", "pack_blob_host", "pack_device_blob", "pinned_bytes",
            "to_host", "to_host_async", "unpack_blob"]
@@ -144,17 +146,22 @@ def pack_device_blob(arrays: dict, device) -> DeviceBlob:
     copied with one ``copy_(non_blocking=True)`` on the current stream: the
     host does not wait, and work queued after it on that stream reads the
     views. For the CPU the views alias the NumPy blob. Every call adds one
-    to ``pack_device_blob.uploads``."""
+    to ``pack_device_blob.uploads``. The host's work, all of it before the
+    copy is enqueued, is a ``sdf.upload.pack`` range."""
     device = canonical(device)
-    if device.type == "cpu":
-        host, metas = pack_blob_host(arrays)
-        blob = torch.from_numpy(host)
-    else:
-        staging, metas = _pinned_blob(arrays)
-        blob = torch.empty(staging.numel(), dtype=torch.uint8, device=device)
+    with tracing.span("sdf.upload.pack", ranged=True):
+        if device.type == "cpu":
+            host, metas = pack_blob_host(arrays)
+            blob = torch.from_numpy(host)
+        else:
+            staging, metas = _pinned_blob(arrays)
+            blob = torch.empty(staging.numel(), dtype=torch.uint8,
+                               device=device)
+        views = unpack_blob(blob, metas)
+    if device.type != "cpu":
         blob.copy_(staging, non_blocking=True)
     pack_device_blob.uploads += 1
-    return DeviceBlob(device, blob, metas, unpack_blob(blob, metas))
+    return DeviceBlob(device, blob, metas, views)
 
 
 pack_device_blob.uploads = 0
@@ -202,19 +209,22 @@ def _write(out: np.ndarray, index, piece: torch.Tensor) -> None:
 
 
 def _staged(src: torch.Tensor, pieces, out: np.ndarray, slots,
-            stream=None) -> None:
+            stream=None, parent=None) -> None:
     """The ring's schedule: pieces 0 .. R-1 are fetched into the R `slots`;
     then piece c is waited for and written into `out`, and piece c+R is
     fetched into its slot. `src` is the source's bytes (uint8, flat).
     With a CUDA `src` this runs on the worker thread under
     ``torch.cuda.stream(stream)``, the side stream, and waits on an event
-    per fetch; the tests run it on the CPU."""
+    per fetch; the tests run it on the CPU. Each fetch is a
+    ``sdf.to_host.link`` span and each write a ``sdf.to_host.touch`` span,
+    recorded under `parent` (the download's span, None when off)."""
     R = len(slots)
     events = [None] * R
 
     def fetch(c):
         _, off, n = pieces[c]
-        slots[c % R][:n].copy_(src[off:off + n], non_blocking=True)
+        with tracing.span("sdf.to_host.link", src.device, parent=parent):
+            slots[c % R][:n].copy_(src[off:off + n], non_blocking=True)
         if stream is not None:
             events[c % R] = stream.record_event()
 
@@ -223,7 +233,8 @@ def _staged(src: torch.Tensor, pieces, out: np.ndarray, slots,
     for c, (index, _, n) in enumerate(pieces):
         if stream is not None:
             events[c % R].synchronize()
-        _write(out, index, slots[c % R][:n])
+        with tracing.span("sdf.to_host.touch", ranged=True, parent=parent):
+            _write(out, index, slots[c % R][:n])
         if c + R < len(pieces):
             fetch(c + R)
 
@@ -252,8 +263,8 @@ class _Stager:
                     1, thread_name_prefix="sdfgen-to-host")
             return self._pool.submit(fn)
 
-    def run(self, src, ready, pieces, out, stream) -> None:
-        """A download on the worker thread."""
+    def run(self, src, ready, pieces, out, stream, parent) -> None:
+        """A download on the worker thread, its spans under `parent`."""
         if self.slots is None:
             self.slots = [torch.empty(CHUNK_BYTES, dtype=torch.uint8,
                                       pin_memory=True)
@@ -261,7 +272,7 @@ class _Stager:
         with torch.cuda.device(src.device), torch.cuda.stream(stream):
             stream.wait_event(ready)
             try:
-                _staged(src, pieces, out, self.slots, stream)
+                _staged(src, pieces, out, self.slots, stream, parent)
             finally:
                 # nothing still in flight into a slot the next download
                 # takes, even after a failure
@@ -280,16 +291,22 @@ def pinned_bytes() -> int:
 
 class Download:
     """A copy to the host that may still be running: :meth:`result` waits
-    for it and returns the NumPy array (and raises what the copy raised)."""
+    for it and returns the NumPy array (and raises what the copy raised).
+    The first :meth:`result` ends the download's ``sdf.to_host`` span."""
 
     def __init__(self, array: np.ndarray,
-                 future: Optional[concurrent.futures.Future] = None):
+                 future: Optional[concurrent.futures.Future] = None,
+                 span=None):
         self._array = array
         self._future = future
+        self._span = span
 
     def result(self) -> np.ndarray:
         if self._future is not None:
             self._future.result()
+        if self._span is not None:
+            self._span.end()
+            self._span = None
         return self._array
 
 
@@ -298,6 +315,7 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 def _start(t: torch.Tensor, out, snapshot: bool) -> Download:
+    top = tracing.begin("sdf.to_host")
     t = t.detach()
     shape = tuple(t.shape)
     dtype = _numpy_dtype(t.dtype)
@@ -309,12 +327,13 @@ def _start(t: torch.Tensor, out, snapshot: bool) -> Download:
                          f"{shape}, got {out.dtype} {out.shape}")
     pieces = _pieces(shape, t.element_size(), CHUNK_BYTES)
     if not pieces:
-        return Download(out)
+        return Download(out, span=top)
     if t.device.type != "cuda":
         src = t.contiguous().reshape(-1).view(torch.uint8)
         for index, off, n in pieces:
-            _write(out, index, src[off:off + n])
-        return Download(out)
+            with tracing.span("sdf.to_host.touch", ranged=True, parent=top):
+                _write(out, index, src[off:off + n])
+        return Download(out, span=top)
     # on the producing stream: a contiguous source (a copy of `t` if the
     # caller gets control back before the copy ends), then the event the
     # side stream waits for. The worker's reference keeps `src` alive until
@@ -327,7 +346,7 @@ def _start(t: torch.Tensor, out, snapshot: bool) -> Download:
     ready.record(torch.cuda.current_stream(t.device))
     stream = _STAGER.side_stream(t.device)
     return Download(out, _STAGER.submit(
-        lambda: _STAGER.run(src, ready, pieces, out, stream)))
+        lambda: _STAGER.run(src, ready, pieces, out, stream, top)), top)
 
 
 def to_host_async(t: torch.Tensor, *, out: Optional[np.ndarray] = None
