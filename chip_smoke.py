@@ -9,7 +9,10 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      host library (make);
   3. each kernel against its plain-torch twin on the card, at the shapes the
      main path gives it (K1 the dense kernel, with the share of pairs its
-     cull evaluates; K2 band rows and their coefficient pass, on the main
+     cull evaluates; K1's table, byte-equal to the torch-op table on box36,
+     icosphere(2) at 1000 with a zero-area triangle and torus1024, K1 on
+     both tables byte-equal, and a box36 ``train_step``'s losses and
+     vertices byte-equal on both, each table timed; K2 band rows and their coefficient pass, on the main
      path's CSR and on hand-made segments; K3 jump-flood round; K4 chamfer
      bit for bit at 1, 2, 3 and 5 passes on the main path's own
      pre-chamfer field, random and ragged fields and thin grids; R1 bit
@@ -282,6 +285,14 @@ OPS_DENSE_PLANE = 8
 OPS_BAND_PAIR = 56
 OPS_BAND_ROW = 30
 OPS_BAND_COEF = 151
+# K1's table (sep_table_kernel), a triangle: the corners less the origin
+# (9), each edge's w, |w|^2, clamp, 1/x, w/|w|^2 and e0 (3 x 19), x13 and
+# x23 (6), m13, m23 and d (15), invdet (5), g23 and g31 (24), the cross
+# product (9), its square, clamp and sqrt (7), the normal (3), h0, g23c and
+# g31c (15), the degenerate compare (1). Bytes: 12 of indices and 36 of
+# corners read, 160 written.
+OPS_SEP_TABLE = 151
+BYTES_SEP_TABLE = 208
 OPS_VDT_DONOR = 9
 OPS_CHAMFER_OFFSET = 2
 # R1's table (recompute_terms_kernel): x13 and x23 (6), m13, m23 and d
@@ -876,6 +887,183 @@ def tri_local(torch, device, mesh, origin):
     """(M, 3, 3) float32 grid-local triangle vertices on the card."""
     tv = mesh.verts[mesh.tris.astype(np.int64)] - np.asarray(origin, np.float32)
     return torch.from_numpy(np.ascontiguousarray(tv, np.float32)).to(device)
+
+
+def host_enqueue_ms(torch, fn, reps):
+    """The host's time to enqueue one fn() call: the host clock around
+    `reps` calls, before the synchronise that follows them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def check_sep_table(torch, device, card, box, box_grid, torus, torus_grid):
+    """K1's table on the card (``ops/dense.sep_table``: sep_table_kernel,
+    the vertex gather included) byte-equal to the torch-op table
+    ``_sep_coefs(verts[tris] - origin)`` on the same card, in its
+    gather-fused and its pre-gathered form, and K1's phi and ids on the two
+    tables byte-equal: box36 on its main-path grid, icosphere(2) 1000 units
+    from the world origin with a zero-area triangle (a ragged grid with an
+    index offset), torus1024 (the cap) on its grid; a corner index outside
+    the mesh gives its row NaN and leaves the rest. Times both tables on
+    box36 and torus1024: the kernel's device time (torch.profiler), each
+    table's time a call back to back (CUDA events; host-paced) and the
+    host's enqueue a call. Returns {label: row}, each row with the measured
+    max |kernel - _sep_coefs| (``max_abs_err``)."""
+    from sdfgenfast_tpu_torch.mesh import icosphere
+    from sdfgenfast_tpu_torch.ops import dense
+
+    ico = icosphere(2, radius=1.0, center=(1000.03, 999.98, 1000.05))
+    ico_tris = ico.tris.astype(np.int32)
+    ico_tris[0] = ico_tris[0, 0]
+    cases = (("box36", box.verts, box.tris, box_grid.origin, box_grid.dx,
+              box_grid.shape, (0, 0, 0), True),
+             ("icosphere(2) at 1000, zero-area", ico.verts, ico_tris,
+              (998.6, 998.7, 998.65), 0.05, (37, 29, 53), (5, 3, 7), False),
+             ("torus1024", torus.verts, torus.tris, torus_grid.origin,
+              torus_grid.dx, torus_grid.shape, (0, 0, 0), True))
+    out = {}
+    for label, verts, tris, origin, dx, shape, off, timed in cases:
+        v = torch.from_numpy(np.ascontiguousarray(verts, np.float32)).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(tris, np.int32)).to(device)
+        o = torch.from_numpy(np.asarray(origin, np.float32)).to(device)
+
+        def kernel():
+            return dense.sep_table(v, o, t)
+
+        def torch_ops():
+            return dense._sep_coefs(v[t.long()] - o).contiguous()
+
+        before = dense.sep_table.launches
+        got = kernel()
+        if dense.sep_table.launches != before + 1:
+            raise AssertionError(f"K1 table {label}: not one launch")
+        want = torch_ops()
+        err = 0.0
+        for form, x in (("gather-fused", got),
+                        ("pre-gathered", dense.sep_table(v[t.long()], o))):
+            if not torch.equal(bits(torch, x), bits(torch, want)):
+                n = int((bits(torch, x) != bits(torch, want)).sum())
+                raise AssertionError(
+                    f"K1 table {label} ({form}): {n} of {want.numel()} "
+                    f"words differ from _sep_coefs")
+            # max |kernel - _sep_coefs|, a NaN on both sides counted as 0
+            diff = (x - want).abs()
+            diff[torch.isnan(x) & torch.isnan(want)] = 0.0
+            err = max(err, float(diff.max()))
+        # a corner index outside [0, N) reads nothing: its triangle's row
+        # is NaN, the other rows are as they were
+        bad = t.clone()
+        bad[1, 1] = len(v)
+        bad[2, 2] = -1
+        odd = dense.sep_table(v, o, bad)
+        kept = torch.ones(len(t), dtype=torch.bool, device=device)
+        kept[[1, 2]] = False
+        if not (torch.isnan(odd[:, ~kept]).all() and torch.equal(
+                bits(torch, odd[:, kept]), bits(torch, got[:, kept]))):
+            raise AssertionError(f"K1 table {label}: an index outside the "
+                                 f"mesh does not give its row NaN alone")
+        kw = dict(grid_shape=tuple(shape), ijk_offset=off)
+        dx32 = float(np.float32(dx))
+        gp, gt = dense.dense_stream(got, dx32, **kw)
+        wp, wt = dense.dense_stream(want, dx32, **kw)
+        if not (torch.equal(bits(torch, gp), bits(torch, wp))
+                and torch.equal(gt, wt)):
+            raise AssertionError(f"K1 on the two tables of {label} differs")
+        row = {"triangles": len(tris), "grid": list(shape),
+               "max_abs_err": err}
+        line = (f"K1 table {label}: M={len(tris)}, byte-equal to _sep_coefs "
+                f"(both forms, max |diff| {err}), NaN rows for indices "
+                f"outside the mesh, K1 phi and ids byte-equal on {shape}")
+        if timed:
+            traced = launch_device_ms(torch, kernel, 50, r"sep_table_kernel")
+            row.update(
+                kernel_ms=traced["sep_table_kernel"][0],
+                kernel_unqueued_ms=cuda_ms(torch, kernel, 200),
+                kernel_host_ms=host_enqueue_ms(torch, kernel, 200),
+                torch_ops_unqueued_ms=cuda_ms(torch, torch_ops, 50),
+                torch_ops_host_ms=host_enqueue_ms(torch, torch_ops, 50))
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                OPS_SEP_TABLE * len(tris), BYTES_SEP_TABLE * len(tris))
+            line += (f"; [{card}] kernel {row['kernel_ms']:.4f} ms (device, "
+                     f"profiled), {row['kernel_unqueued_ms']:.4f} back to "
+                     f"back, host {row['kernel_host_ms']:.4f}; torch ops "
+                     f"{row['torch_ops_unqueued_ms']:.4f} back to back, host "
+                     f"{row['torch_ops_host_ms']:.4f}; bound "
+                     f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+        print(line, flush=True)
+        out[label] = row
+    return out
+
+
+def sep_table_steps(torch, device, card, box, box_grid, steps=3, timed=300):
+    """box36 ``SDFGenerator.train_step`` from one seeded start (the
+    benchmark's train mix: vertices and target 0.25 cells off, lr 0.25 a
+    vertex) on the kernel's table and on the torch-op table
+    (``dense.sep_table`` swapped for ``_sep_coefs`` over the gathered
+    corners): each of `steps` steps' loss and vertices byte-equal. Then the
+    step's wall, loss read every step, `timed` steps a turn in the order
+    torch ops, kernel, kernel, torch ops. Returns a dict."""
+    from sdfgenfast_tpu_torch.mesh import Mesh
+    from sdfgenfast_tpu_torch.models import SDFGenerator
+    from sdfgenfast_tpu_torch.ops import dense
+    from sdfgenfast_tpu_torch.pipeline import make_level_set3
+
+    rng = np.random.default_rng(20)
+    dx = float(box_grid.dx)
+    verts = (box.verts + rng.uniform(-0.25, 0.25, box.verts.shape) * dx
+             ).astype(np.float32)
+    target_verts = (verts + rng.uniform(-0.25, 0.25, verts.shape) * dx
+                    ).astype(np.float32)
+    target = make_level_set3(Mesh(target_verts, box.tris), box_grid,
+                             device=device)
+    model = SDFGenerator(Mesh(verts, box.tris), box_grid, device=device)
+    lr = 0.25 * len(verts)
+    kernel_table = dense.sep_table
+
+    def torch_ops_table(verts, origin, tris=None):
+        tv = verts if tris is None else verts[tris.long()]
+        return dense._sep_coefs(tv - origin).contiguous()
+
+    torch_ops_table.launches = 0
+
+    def run(table, n, read):
+        dense.sep_table = table
+        try:
+            v, got = model.params, []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                v, loss = model.train_step(v, target, lr)
+                got.append(read(v, loss))
+            torch.cuda.synchronize()
+            return got, (time.perf_counter() - t0) / n * 1e3
+        finally:
+            dense.sep_table = kernel_table
+
+    def keep(v, loss):
+        return bits(torch, loss.detach()).cpu(), bits(torch, v.detach()).cpu()
+
+    old, _ = run(torch_ops_table, steps, keep)
+    new, _ = run(kernel_table, steps, keep)
+    for i, ((lo, vo), (ln, vn)) in enumerate(zip(old, new)):
+        if not (torch.equal(lo, ln) and torch.equal(vo, vn)):
+            raise AssertionError(f"box36 step {i}: loss or vertices differ "
+                                 f"between the two tables")
+    walls = {"torch_ops": [], "kernel": []}
+    for name in ("torch_ops", "kernel", "kernel", "torch_ops"):
+        table = kernel_table if name == "kernel" else torch_ops_table
+        walls[name].append(run(table, timed, lambda v, loss: float(loss))[1])
+    print(f"[{card}] box36 train_step: {steps} steps' losses and vertices "
+          f"byte-equal on the two tables; step wall (ms, {timed} steps a "
+          f"turn, loss read each step): torch-op table {walls['torch_ops']}, "
+          f"kernel {walls['kernel']}", flush=True)
+    return {"steps_byte_equal": steps, "step_ms": walls}
 
 
 def check_dense(torch, device, label, kernel, twin, table, tris, dx,
@@ -4527,6 +4715,9 @@ def main():
     if box_grid.shape != (256, 341, 425) or torus_grid.shape != (256, 256, 75):
         raise AssertionError(f"dense grids {box_grid.shape} {torus_grid.shape}")
     k1 = check_k1(torch, device, box, box_grid, torus, torus_grid)
+    k1_table = check_sep_table(torch, device, card, box, box_grid, torus,
+                               torus_grid)
+    sep_table_steps(torch, device, card, box, box_grid)
     k2 = check_k2(torch, device, *grids[256])
     k3_err = check_k3(torch, device)
     k4_err, k4_plain = check_k4(torch, device,
@@ -4568,21 +4759,25 @@ def main():
 
     # -- 4b. the dense path: CLI goldens, box36, torus1024, a batch ----------
     cli_goldens()
-    dense.dense_stream.launches = 0
+    dense.dense_stream.launches = dense.sep_table.launches = 0
     t0 = time.perf_counter()
     box_phi = generate_sdf(box.verts, box.tris, box_grid.origin, box_grid.dx,
                            *box_grid.shape, device=device)
     box_cold = time.perf_counter() - t0
     dense_launches = {"box36": dense.dense_stream.launches}
-    dense.dense_stream.launches = 0
+    table_launches = {"box36": dense.sep_table.launches}
+    dense.dense_stream.launches = dense.sep_table.launches = 0
     torus_phi, torus_meta = generate_from_mesh(torus.verts, torus.tris,
                                                nx=254, device=device)
     dense_launches["torus1024"] = dense.dense_stream.launches
+    table_launches["torus1024"] = dense.sep_table.launches
     launches["dense_stream"] = sum(dense_launches.values())
-    print(f"dense-path launches: K1 {dense_launches}; box36 cold call "
-          f"{box_cold:.3f} s", flush=True)
-    if dense_launches != {"box36": 1, "torus1024": 1}:
-        raise AssertionError("box36 and torus1024 take one K1 launch each")
+    print(f"dense-path launches: K1 {dense_launches}, its table "
+          f"{table_launches}; box36 cold call {box_cold:.3f} s", flush=True)
+    if dense_launches != {"box36": 1, "torus1024": 1} or table_launches != {
+            "box36": 1, "torus1024": 1}:
+        raise AssertionError("box36 and torus1024 take one K1 launch and "
+                             "one table launch each")
     if torus_meta["dx"] != torus_grid.dx or torus_phi.shape != torus_grid.shape:
         raise AssertionError("generate_from_mesh sized the torus differently")
     check_dense_vs_binned(torch, device, "box36", box, box_grid, box_phi)
@@ -4945,6 +5140,10 @@ def main():
         "dense_stream": k1_bound(n_box, len(box.tris), k1["evaluated_share"]),
         "dense_stream_torus1024": k1_bound(n_torus, len(torus.tris),
                                            k1["torus_evaluated_share"]),
+        "sep_table": (k1_table["box36"]["bound_ms"],
+                      k1_table["box36"]["bound_by"]),
+        "sep_table_torus1024": (k1_table["torus1024"]["bound_ms"],
+                                k1_table["torus1024"]["bound_by"]),
         "band_coefs": k2["bounds"]["coefs"],
         "band_rows": k2["bounds"]["walk"],
         "vdt_round": k3_bound(grids[256][1].shape),
@@ -5070,6 +5269,22 @@ def main():
          "launches": dense_launches["torus1024"],
          "max_abs_err": k1["torus_err"], "ms": k1["torus_ms"],
          "plain_ms": k1["torus_plain"]},
+        # K1's table, byte-equal to the torch ops it replaces (jnp in the
+        # JAX package, no Pallas kernel); plain: those ops back to back
+        {"name": "sep_table", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/dense.cu",
+         "replaces": "sdfgenfast_tpu/ops/dense.py:68",
+         "launches": table_launches["box36"],
+         "max_abs_err": k1_table["box36"]["max_abs_err"],
+         "ms": k1_table["box36"]["kernel_ms"],
+         "plain_ms": k1_table["box36"]["torch_ops_unqueued_ms"]},
+        {"name": "sep_table_torus1024", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/dense.cu",
+         "replaces": "sdfgenfast_tpu/ops/dense.py:68",
+         "launches": table_launches["torus1024"],
+         "max_abs_err": k1_table["torus1024"]["max_abs_err"],
+         "ms": k1_table["torus1024"]["kernel_ms"],
+         "plain_ms": k1_table["torus1024"]["torch_ops_unqueued_ms"]},
         # K2's two launches: the coefficients the Pallas body builds per
         # candidate (band_pallas.py:76), then the walk
         {"name": "band_coefs", "route": "cuda",

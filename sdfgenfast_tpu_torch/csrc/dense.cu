@@ -435,6 +435,118 @@ int launch_any(const float* coef, int m, int ni, int nj, int nk, int oi,
                                evaluated, s);
 }
 
+// -- the (40, M) table -------------------------------------------------------
+//
+// sep_table_kernel builds K1's table from the mesh on the card: one thread per
+// triangle gathers its three corners (verts[tris[3t + v]], or rows 3t + v of
+// pre-gathered corners when tris is null), subtracts the origin and writes
+// its 40 coefficients, row r to out[r * m + t], so the stores of a warp
+// coalesce. It follows ops/dense._sep_coefs operation by operation, in the
+// same order: _dot as (u0*v0 + u1*v1) + u2*v2, torch.clamp's min as a
+// compare that lets NaN through, 1 / x as torch's reciprocal, sqrtf.
+// Built with --fmad=false and IEEE division and square root, every operation
+// rounds on its own as torch's elementwise ops do, so the table is
+// byte-equal to the plain-torch one. A corner index outside [0, n) reads
+// nothing and gives the triangle a row of NaN.
+
+constexpr int kTableThreads = 128;
+
+__device__ __forceinline__ float dot3(const float* u, const float* v) {
+  return (u[0] * v[0] + u[1] * v[1]) + u[2] * v[2];
+}
+
+// torch.clamp(x, min=lo): a NaN x stays NaN
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
+}
+
+__global__ void __launch_bounds__(kTableThreads)
+sep_table_kernel(const float* __restrict__ verts, int n,
+                 const int* __restrict__ tris, int m,
+                 const float* __restrict__ origin, float* __restrict__ out) {
+  const int t = blockIdx.x * kTableThreads + threadIdx.x;
+  if (t >= m) return;
+  float p[3][3];  // a, b, c in grid-local coordinates
+  bool valid = true;
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    int row = 3 * t + v;
+    if (tris != nullptr) {
+      row = tris[3 * t + v];
+      if (row < 0 || row >= n) {
+        valid = false;
+        row = 0;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      p[v][k] = verts[3 * (long long)row + k] - origin[k];
+  }
+  const float* a = p[0];
+  const float* b = p[1];
+  const float* c = p[2];
+  float cf[kNumCoef];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    cf[k] = b[k];
+    cf[3 + k] = c[k];
+  }
+  // the edges x1 - x2 (rows 6:15) and their parameters e.p + e0 (15:27)
+  const float* ends[3][2] = {{a, b}, {a, c}, {b, c}};
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const float* x1 = ends[e][0];
+    const float* x2 = ends[e][1];
+    float w[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) w[k] = x1[k] - x2[k];
+    const float inv = 1.0f / clamp_min(dot3(w, w), 1e-30f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      cf[6 + 3 * e + k] = w[k];
+      cf[15 + 4 * e + k] = w[k] * inv;
+    }
+    cf[18 + 4 * e] = -dot3(x2, w) * inv;
+  }
+  float x13[3], x23[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    x13[k] = a[k] - c[k];
+    x23[k] = b[k] - c[k];
+  }
+  const float m13 = dot3(x13, x13);
+  const float m23 = dot3(x23, x23);
+  const float d = dot3(x13, x23);
+  const float invdet = 1.0f / clamp_min(m13 * m23 - d * d, 1e-30f);
+  float g23[3], g31[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    g23[k] = invdet * (m23 * x13[k] - d * x23[k]);
+    g31[k] = invdet * (m13 * x23[k] - d * x13[k]);
+  }
+  const float cr[3] = {x13[1] * x23[2] - x13[2] * x23[1],
+                       x13[2] * x23[0] - x13[0] * x23[2],
+                       x13[0] * x23[1] - x13[1] * x23[0]};
+  const float cr2 = dot3(cr, cr);
+  const float norm = sqrtf(clamp_min(cr2, 1e-37f));
+  float nrm[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) nrm[k] = cr[k] / norm;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    cf[27 + k] = nrm[k];
+    cf[31 + k] = g23[k];
+    cf[35 + k] = g31[k];
+  }
+  cf[30] = -dot3(nrm, c);
+  cf[34] = -dot3(g23, c);
+  cf[38] = -dot3(g31, c);
+  cf[39] = cr2 <= 1e-30f ? 1.0f : 0.0f;
+#pragma unroll
+  for (int r = 0; r < kNumCoef; ++r)
+    out[(long long)r * m + t] = valid ? cf[r] : __int_as_float(0x7fc00000);
+}
+
 }  // namespace
 
 extern "C" int sdf_dense_stream(const float* coef, int m, int ni, int nj,
@@ -455,4 +567,17 @@ extern "C" int sdf_dense_stream_counted(const float* coef, int m, int ni,
                                         void* stream) {
   return launch_any<true>(coef, m, ni, nj, nk, oi, oj, ok, dx, phi, tid,
                           evaluated, stream);
+}
+
+// K1's (40, m) table into out: verts (n, 3) float32 and tris (m, 3) int32, or
+// tris null and verts the (3m, 3) gathered corners; origin 3 floats; all on
+// the card. One launch, on `stream`.
+extern "C" int sdf_sep_table(const float* verts, int n, const int* tris,
+                             int m, const float* origin, float* out,
+                             void* stream) {
+  if (m <= 0) return (int)cudaGetLastError();
+  sep_table_kernel<<<(m + kTableThreads - 1) / kTableThreads, kTableThreads,
+                     0, (cudaStream_t)stream>>>(verts, n, tris, m, origin,
+                                                out);
+  return (int)cudaGetLastError();
 }

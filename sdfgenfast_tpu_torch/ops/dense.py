@@ -25,10 +25,13 @@ ties keep the lowest id (cpu_lib/makelevelset3.cpp:215-218). Coordinates
 are grid-local: the origin is subtracted from the triangles once, and cell
 (i, j, k) sits at ``f32(i + offset) * dx``.
 
-The wrapper launches the CUDA kernel (``csrc/dense.cu``) for a CUDA tensor
-and runs the plain-torch twin :func:`dense_sep_reference` (the cull-free
-walk of the same arithmetic) for a CPU tensor. ``dense_stream.launches``
-counts kernel launches.
+The wrappers launch the CUDA kernels (``csrc/dense.cu``) for CUDA tensors:
+:func:`sep_table` builds the table from the mesh in one launch, the vertex
+gather included, and :func:`dense_stream` walks it. For CPU tensors they
+run the plain-torch twins, :func:`_sep_coefs` and
+:func:`dense_sep_reference` (the cull-free walk of the same arithmetic).
+``sep_table.launches`` and ``dense_stream.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -194,23 +197,60 @@ def dense_stream(coef, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
 dense_stream.launches = 0
 
 
-def sep_table(tri_verts, origin):
-    """K1's (40, M) table of the (M, 3, 3) float32 `tri_verts` in grid-local
-    coordinates (less `origin`, a (3,) tensor or sequence); ValueError above
+def sep_table(verts, origin, tris=None):
+    """K1's (40, M) table in grid-local coordinates (less `origin`, a (3,)
+    tensor or sequence).
+
+    With `tris`, (M, 3) int32, `verts` is the mesh's (N, 3) float32
+    vertices and triangle t's corners are ``verts[tris[t]]``; without it,
+    `verts` holds the gathered corners, (M, 3, 3) float32. CUDA: one launch
+    of ``sep_table_kernel`` (``csrc/dense.cu``), the gather and the origin
+    included, byte-equal to :func:`_sep_coefs`; ``sep_table.launches``
+    counts them. CPU: ``_sep_coefs(verts[tris] - origin)``. ValueError above
     DENSE_MAX_TRIS triangles."""
-    if (tri_verts.dtype != torch.float32 or tri_verts.dim() != 3
-            or tuple(tri_verts.shape[1:]) != (3, 3)):
-        raise ValueError(f"tri_verts must be (M, 3, 3) float32, got "
-                         f"{tuple(tri_verts.shape)} {tri_verts.dtype}")
-    m = int(tri_verts.shape[0])
+    if tris is None:
+        if (verts.dtype != torch.float32 or verts.dim() != 3
+                or tuple(verts.shape[1:]) != (3, 3)):
+            raise ValueError(f"tri_verts must be (M, 3, 3) float32, got "
+                             f"{tuple(verts.shape)} {verts.dtype}")
+        m = int(verts.shape[0])
+    else:
+        if (verts.dtype != torch.float32 or verts.dim() != 2
+                or verts.shape[1] != 3):
+            raise ValueError(f"verts must be (N, 3) float32, got "
+                             f"{tuple(verts.shape)} {verts.dtype}")
+        if tris.dtype != torch.int32 or tris.dim() != 2 or tris.shape[1] != 3:
+            raise ValueError(f"tris must be (M, 3) int32, got "
+                             f"{tuple(tris.shape)} {tris.dtype}")
+        m = int(tris.shape[0])
     if m > DENSE_MAX_TRIS:
         raise ValueError(
             f"dense path capped at {DENSE_MAX_TRIS} triangles, got {m}")
     origin = torch.as_tensor(origin, dtype=torch.float32,
-                             device=tri_verts.device)
-    # grid-local coordinates: coefficients stay O(mesh extent), not
-    # O(|origin|), for meshes far from the world origin
-    return _sep_coefs(tri_verts - origin).contiguous()
+                             device=verts.device).reshape(3).contiguous()
+    if verts.device.type == "cpu":
+        tv = verts if tris is None else verts[tris.long()]
+        # grid-local coordinates: coefficients stay O(mesh extent), not
+        # O(|origin|), for meshes far from the world origin
+        return _sep_coefs(tv - origin).contiguous()
+    if verts.device.type != "cuda":
+        raise ValueError(f"sep_table: unsupported device {verts.device}")
+    verts = verts.contiguous()
+    if tris is not None:
+        tris = tris.to(verts.device).contiguous()
+    out = torch.empty((_NC, m), dtype=torch.float32, device=verts.device)
+    lib = build.library()
+    with torch.cuda.device(verts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(lib.sdf_sep_table(
+            verts.data_ptr(), verts.numel() // 3,
+            None if tris is None else tris.data_ptr(), m, origin.data_ptr(),
+            out.data_ptr(), stream), "sdf_sep_table")
+    sep_table.launches += 1
+    return out
+
+
+sep_table.launches = 0
 
 
 def dense_distance_field(tri_verts, origin, dx, *, grid_shape, ijk_offset=None):

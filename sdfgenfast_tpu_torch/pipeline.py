@@ -13,8 +13,9 @@ Dense path (``"exact"``, at most ``dense_max_tris`` triangles,
 :func:`dense_sign_core`):
 
   1. host: the x-ray parity (or the 2D sign binning), no band binning;
-  2. device: vertex gather -> K1 (one kernel up to 1024 triangles): the
-     exact distance of every cell to every triangle -> sign from the parity.
+  2. device: K1's table, the vertex gather included (one kernel) -> K1
+     (one kernel up to 1024 triangles): the exact distance of every cell to
+     every triangle -> sign from the parity.
 
 Binned exact path (``"exact"``, :func:`exact_core`):
 
@@ -455,14 +456,15 @@ def _parity_device(parity_data, ni):
 def dense_sign_core(verts, tris, parity_data, origin, dx: float, *,
                     grid_shape):
     """The dense path on device tensors (``sdfgenfast_tpu.pipeline.
-    _dense_sign_core``): vertex gather -> K1 -> sign from the parity.
+    _dense_sign_core``): K1's table (the vertex gather inside it) -> K1 ->
+    sign from the parity.
 
     verts (N, 3) f32, tris (M, 3) int32, parity_data (uint8 packed, int16
     crossings or the bool field), origin (3,) f32, all on one device; dx a
     float32-representable float. Returns (signed phi, tid), each
     (ni, nj, nk)."""
     with tracing.span("sdf.dense.table", verts.device):
-        table = dense_ops.sep_table(verts[tris.long()], origin)
+        table = dense_ops.sep_table(verts, origin, tris)
     with tracing.span("sdf.dense.k1", verts.device):
         phi, tid = dense_ops.dense_stream(
             table, float(np.float32(dx)),

@@ -16,8 +16,9 @@ breakdown of the path users run. Stages:
   its K3 rounds (summed, with their count) and its glue (``seed_state``,
   ``_downsample2``, ``_upsample_merge``, ``finish_state``) and the axis
   permutation around it, K4, the parity unpack, the sign apply;
-- the dense path (``pipeline.dense_sign_core``): the upload, the vertex
-  gather, K1's table, K1, the parity unpack, the sign apply;
+- the dense path (``pipeline.dense_sign_core``): the upload, K1's table
+  (``ops/dense.sep_table``, the vertex gather inside it), K1, the parity
+  unpack, the sign apply;
 - then the copy back (``upload.to_host``, host clock) and the warm
   end-to-end call (``make_level_set3`` on a binning kept on the device,
   synchronised; the min of 3, as the JAX tool takes it).
@@ -177,9 +178,8 @@ def staged(mesh, grid, config: SDFConfig, device, repeats: int = 3):
     info = {"binning": None, "k3_rounds": 0, "exact": None}
     parity_data = d["parity"] if "parity" in d else d["crossings"]
     if dense_path:
-        tv = st.run("vertex gather", lambda: d["verts"][d["tris"].long()])
-        coef = st.run("K1 table", lambda: dense._sep_coefs(
-            tv - d["origin"]).contiguous())
+        coef = st.run("K1 table", lambda: dense.sep_table(
+            d["verts"], d["origin"], d["tris"]))
         phi, tid = st.run("K1", lambda: dense.dense_stream(
             coef, dx, grid_shape=grid.shape))
     else:

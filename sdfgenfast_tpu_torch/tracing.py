@@ -10,7 +10,7 @@ parent (the enclosing span on the same thread, or the span passed
 explicitly to a worker thread), the id of its root (shared by every span
 of one call into the API), host start and end (``time.perf_counter_ns``),
 the device milliseconds of a device span, and ``launches``, the change
-over the span in the sum of the eight kernel launch counters
+over the span in the sum of the nine kernel launch counters
 (:func:`launch_count`).
 
 Three kinds of span:
@@ -99,10 +99,11 @@ def launch_count() -> int:
     if not _counted:
         from .ops import band_kernel, dense, recompute, vdt_kernel
 
-        _counted = (dense.dense_stream, band_kernel.band_coefs,
-                    band_kernel.band_rows, vdt_kernel.round_phase,
-                    vdt_kernel.chamfer, recompute.recompute_terms,
-                    recompute.recompute_forward, recompute.recompute_backward)
+        _counted = (dense.sep_table, dense.dense_stream,
+                    band_kernel.band_coefs, band_kernel.band_rows,
+                    vdt_kernel.round_phase, vdt_kernel.chamfer,
+                    recompute.recompute_terms, recompute.recompute_forward,
+                    recompute.recompute_backward)
     return sum(f.launches for f in _counted)
 
 

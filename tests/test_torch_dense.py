@@ -24,6 +24,7 @@ import sdfgenfast_tpu_torch as P
 from sdfgenfast_tpu.ops import dense as jdense
 from sdfgenfast_tpu.ops import geometry as jgeom
 from sdfgenfast_tpu_torch import grid as pgrid
+from sdfgenfast_tpu_torch import tracing
 from sdfgenfast_tpu_torch import pipeline as ppipe
 from sdfgenfast_tpu_torch.io import mesh_io, sdf_io
 from sdfgenfast_tpu_torch.ops import dense as pdense
@@ -107,12 +108,25 @@ def test_point_triangle_distance_sq_soa_matches_jax():
 
 # -- the coefficient table ----------------------------------------------------
 
-
-@pytest.mark.parametrize("sub,center,origin", [
+# (subdivision, centre, grid origin): icosphere(1) and (3) near the world
+# origin and icosphere(1) 1000 units from it
+TABLE_MESHES = [
     (1, (0.05, -0.03, 0.08), (-1.31, -1.24, -1.18)),
     (3, (0.02, -0.01, 0.03), (-1.2, -1.15, -1.1)),
     (1, (1000.05, 999.97, 1000.08), (998.69, 998.76, 998.82)),
-])
+]
+
+
+def _table_mesh(sub, center):
+    """(verts (N, 3) f32, tris (M, 3) int32): the icosphere's first 384
+    triangles, the first made zero-area."""
+    mesh = P.icosphere(sub, radius=1.0, center=center)
+    tris = mesh.tris[:384].astype(np.int32)
+    tris[0] = tris[0, 0]
+    return np.ascontiguousarray(mesh.verts, np.float32), tris
+
+
+@pytest.mark.parametrize("sub,center,origin", TABLE_MESHES)
 def test_sep_coefs_match_jax(sub, center, origin):
     tl = (_tri_verts(P.icosphere(sub, radius=1.0, center=center))[:384]
           - np.asarray(origin, np.float32))
@@ -132,6 +146,70 @@ def test_sep_coefs_match_jax(sub, center, origin):
         np.testing.assert_array_equal(got[r], jitted[r], err_msg=f"row {r}")
     scale = np.spacing(np.abs(jitted).max(axis=1))
     assert (np.abs(got - jitted).max(axis=1) <= 8 * scale).all()
+
+
+@pytest.mark.parametrize("form", ["gather-fused", "pre-gathered"])
+@pytest.mark.parametrize("sub,center,origin", TABLE_MESHES)
+def test_sep_table_matches_jax(sub, center, origin, form):
+    """The wrapper's two entries on CPU tensors (the mesh's vertices and
+    int32 triangles, or the gathered corners), the origin subtracted inside,
+    bit-equal to JAX's table of the same corners less the same origin."""
+    verts, tris = _table_mesh(sub, center)
+    tl = verts[tris.astype(np.int64)] - np.asarray(origin, np.float32)
+    with jax.disable_jit():
+        want = np.asarray(jdense._sep_coefs(jnp.asarray(tl)))
+    v = torch.from_numpy(verts)
+    before = pdense.sep_table.launches
+    if form == "gather-fused":
+        got = pdense.sep_table(v, torch.tensor(origin), torch.from_numpy(tris))
+    else:
+        got = pdense.sep_table(v[torch.from_numpy(tris).long()], list(origin))
+    assert pdense.sep_table.launches == before  # the twin launches nothing
+    assert got.shape == (40, len(tris)) and got.is_contiguous()
+    assert float(got[39, 0]) == 1.0
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+_BAD_TABLE_INPUTS = {
+    "tris int64": lambda v, t: (v, t.long()),
+    "tris uint8": lambda v, t: (v, t.to(torch.uint8)),
+    "tris (M, 2)": lambda v, t: (v, t[:, :2].contiguous()),
+    "verts (N, 2)": lambda v, t: (v[:, :2].contiguous(), t),
+    "verts float64": lambda v, t: (v.double(), t),
+    "1025 triangles": lambda v, t: (v, t[torch.arange(1025) % len(t)]),
+    "gathered (M, 3, 2)": lambda v, t: (v[t.long()][:, :, :2], None),
+    "gathered 1025": lambda v, t: (v[t.long()][torch.arange(1025) % len(t)],
+                                   None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BAD_TABLE_INPUTS))
+def test_sep_table_refuses_bad_inputs(case):
+    verts, tris = (torch.from_numpy(x)
+                   for x in _table_mesh(*TABLE_MESHES[0][:2]))
+    verts, tris = _BAD_TABLE_INPUTS[case](verts, tris)
+    with pytest.raises(ValueError, match="1024" if "1025" in case else None):
+        pdense.sep_table(verts, (0.0, 0.0, 0.0), tris)
+
+
+def test_sep_table_counter_in_launch_count(monkeypatch):
+    """``sep_table.launches`` is one of ``tracing.launch_count``'s
+    counters, so a span around the table counts its launch."""
+    monkeypatch.setattr(pdense.sep_table, "launches", 11)
+    before = tracing.launch_count()
+    pdense.sep_table.launches += 1
+    assert tracing.launch_count() == before + 1
+    tracing.clear()
+    tracing.enable()
+    try:
+        with tracing.span("sdf.dense.table"):
+            pdense.sep_table.launches += 1
+    finally:
+        tracing.disable()
+    (rec,) = [r for r in tracing.spans() if r.name == "sdf.dense.table"]
+    assert rec.launches == 1
+    tracing.clear()
 
 
 # -- the twins against the JAX kernels and the oracle -----------------------
