@@ -182,8 +182,17 @@ def generate_sdf_batch(
     spreads the shards over the processes of a process group: every process
     calls with the same arguments, runs its own shards
     (``multihost.sharded_sdf_multihost``) and returns the same grids
-    (``multihost.fetch_global``).
+    (``multihost.fetch_global``). The call is one ``sdf.generate_sdf_batch``
+    span, the root of every span inside it.
     """
+    with tracing.span("sdf.generate_sdf_batch"):
+        return _batch(meshes, origin, dx, nx, ny, nz, exact_band, backend,
+                      far_field, device, device_mesh, config)
+
+
+def _batch(meshes, origin, dx, nx, ny, nz, exact_band, backend, far_field,
+           device, device_mesh, config):
+    """:func:`generate_sdf_batch` inside its span."""
     if nx <= 0 or ny <= 0 or nz <= 0:
         raise ValueError("Grid dimensions must be positive (nx, ny, nz > 0)")
     if not (float(dx) > 0.0):
@@ -242,8 +251,9 @@ def _sharded_batch(validated, grid: GridSpec, config: SDFConfig,
     each mesh's host binning overlaps the previous mesh's shards on the
     devices. In one process each block's copy to the host starts when the
     shards are launched and writes into its slice of one (ni, nj, nk)
-    array; across processes every process bins every mesh, runs its shards
-    and gathers every block."""
+    array, one ``sdf.sharded.assemble`` host span from the shards' launch
+    returning to the last block written; across processes every process
+    bins every mesh, runs its shards and gathers every block."""
     dims = tuple(device_mesh.devices.shape)
     multi = spans_processes(device_mesh)
 
@@ -253,19 +263,22 @@ def _sharded_batch(validated, grid: GridSpec, config: SDFConfig,
             return sharded_sdf_multihost(sb, device_mesh, mesh.verts)
         blocks = sharded_sdf(sb, device_mesh, verts=mesh.verts,
                              assemble=False)
+        span = tracing.begin("sdf.sharded.assemble")
         out = np.empty(grid.shape, np.float32)
         nj, nk = blocks[0][0].shape[1:]
         return out, [to_host_async(b, out=out[:, a * nj:(a + 1) * nj,
                                               c * nk:(c + 1) * nk])
                      for a, row in enumerate(blocks)
-                     for c, b in enumerate(row)]
+                     for c, b in enumerate(row)], span
 
     def collect(launched):
         if multi:
             return assemble_blocks(fetch_global(launched, device_mesh))
-        out, copies = launched
+        out, copies, span = launched
         for copy in copies:
             copy.result()
+        if span is not None:
+            span.end()
         return out
 
     out = []

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..grid import GridSpec
 from ..mesh import Mesh as TriMesh
 from ..ops import band as band_ops
@@ -301,7 +302,15 @@ def bin_mesh_sharded(mesh: TriMesh, grid: GridSpec, dims: Tuple[int, int],
     ``pipeline.bin_mesh``) split by owner shard, per-shard CSR at 8^3
     tiles in ``"exact"`` mode, and the sign: the host parity packed per
     shard block, or (``sign_mode="device"``) the 2D sign tiles split by
-    owner shard. ValueError where the blocks do not divide."""
+    owner shard. ValueError where the blocks do not divide. One
+    ``sdf.sharded.bin`` host span, the ``sdf.bin.*`` ranges inside."""
+    with tracing.span("sdf.sharded.bin"):
+        return _bin_sharded(mesh, grid, dims, config)
+
+
+def _bin_sharded(mesh: TriMesh, grid: GridSpec, dims: Tuple[int, int],
+                 config: SDFConfig) -> ShardedBinned:
+    """:func:`bin_mesh_sharded` inside its span."""
     Dj, Dk = (int(v) for v in dims)
     ni, nj, nk = grid.shape
     if nj % Dj or nk % Dk:
@@ -326,16 +335,18 @@ def bin_mesh_sharded(mesh: TriMesh, grid: GridSpec, dims: Tuple[int, int],
         exact = config.far_field == "exact"
         seed_band = (max(config.exact_band, 3) if exact
                      else config.exact_band)
-        bb = band_ops.bin_triangles(mesh.verts, mesh.tris, grid, seed_band,
-                                    tile_shape, prune=exact)
-        nti = -(-ni // ti)
-        band_tiles_local = (nti, nj_l // tj, nk_l // tk)
-        tiles_global = tuple(int(x) for x in bb.tiles_dim)
-        b_ids, b_cand, b_valid, b_gids = _partition_tiles(
-            bb.active_ids.astype(np.int64), bb.cand, bb.cand_valid,
-            bb.tiles_dim, band_tiles_local, (Dj, Dk))
+        with tracing.span("sdf.bin.band", ranged=True):
+            bb = band_ops.bin_triangles(mesh.verts, mesh.tris, grid,
+                                        seed_band, tile_shape, prune=exact)
+            nti = -(-ni // ti)
+            band_tiles_local = (nti, nj_l // tj, nk_l // tk)
+            tiles_global = tuple(int(x) for x in bb.tiles_dim)
+            b_ids, b_cand, b_valid, b_gids = _partition_tiles(
+                bb.active_ids.astype(np.int64), bb.cand, bb.cand_valid,
+                bb.tiles_dim, band_tiles_local, (Dj, Dk))
         if reads_csr(config):
-            csr = _shard_csr(b_cand, b_valid, len(mesh.tris))
+            with tracing.span("sdf.bin.csr", ranged=True):
+                csr = _shard_csr(b_cand, b_valid, len(mesh.tris))
 
     sign_kw = {}
     if config.sign_mode == "device":
@@ -345,20 +356,24 @@ def bin_mesh_sharded(mesh: TriMesh, grid: GridSpec, dims: Tuple[int, int],
                 f"sign_mode='device' needs shard blocks divisible by "
                 f"tile2d_shape {tuple(config.tile2d_shape)} "
                 f"(got nj_l={nj_l}, nk_l={nk_l})")
-        sb = sign_ops.bin_triangles_2d(mesh.verts, mesh.tris, grid,
-                                       (tj2, tk2))
-        sign_tiles_local = (nj_l // tj2, nk_l // tk2)
-        s_ids, s_cand, s_valid, _ = _partition_tiles(
-            sb.active_ids.astype(np.int64), sb.cand, sb.cand_valid,
-            sb.tiles_dim, sign_tiles_local, (Dj, Dk))
+        with tracing.span("sdf.bin.parity", ranged=True):
+            sb = sign_ops.bin_triangles_2d(mesh.verts, mesh.tris, grid,
+                                           (tj2, tk2))
+            sign_tiles_local = (nj_l // tj2, nk_l // tk2)
+            s_ids, s_cand, s_valid, _ = _partition_tiles(
+                sb.active_ids.astype(np.int64), sb.cand, sb.cand_valid,
+                sb.tiles_dim, sign_tiles_local, (Dj, Dk))
         packed_blocks = np.zeros((Dj, Dk, 0, nj_l, nk_l), np.uint8)
         sign_kw = dict(sign_ids=s_ids, sign_cand=s_cand, sign_valid=s_valid,
                        f=sb.f, window=sb.window,
                        sign_tiles_local=sign_tiles_local)
     else:
-        packed = sign_host_ops.parity_packed_host(mesh.verts, mesh.tris, grid)
-        packed_blocks = (packed.reshape(packed.shape[0], Dj, nj_l, Dk, nk_l)
-                         .transpose(1, 3, 0, 2, 4).copy())
+        with tracing.span("sdf.bin.parity", ranged=True):
+            packed = sign_host_ops.parity_packed_host(mesh.verts, mesh.tris,
+                                                      grid)
+            packed_blocks = (packed.reshape(packed.shape[0], Dj, nj_l, Dk,
+                                            nk_l)
+                             .transpose(1, 3, 0, 2, 4).copy())
 
     return ShardedBinned(
         grid, config, (Dj, Dk), (ni, nj_l, nk_l),
@@ -478,10 +493,24 @@ class LocalTransport:
         concatenated on tensor axis `axis`: the lo neighbour's last planes,
         the hi neighbour's first ones; `fill` at the mesh's edges
         (``sdfgenfast_tpu.parallel.sharded._extend``). `grid` may be a
-        row or a column of the mesh (the plane scans' rounds)."""
+        row or a column of the mesh (the plane scans' rounds).
+
+        One ``sdf.sharded.halo`` range a call, whose count ``bytes`` is
+        what the extension writes: each extended block, each fill, and each
+        neighbour's planes that another device or process sent (a plane on
+        the receiving block's own device is read where it lies)."""
+        with tracing.span("sdf.sharded.halo", ranged=True) as sp:
+            out, written = self._extend(grid, axis_name, axis, fill, depth)
+            if sp is not None:
+                sp.add("bytes", written)
+            return out
+
+    def _extend(self, grid, axis_name: str, axis: int, fill, depth: int):
+        """:meth:`extend`'s grid and the bytes it wrote."""
         dims = (len(grid), len(grid[0]))
         remote = self._remote_halos(grid, axis_name, axis, depth)
         out = []
+        written = 0
         for dj in range(dims[0]):
             row = []
             for dk in range(dims[1]):
@@ -494,6 +523,8 @@ class LocalTransport:
                                      f"{x.shape[axis]} along {axis_name}")
                 halo_shape = list(x.shape)
                 halo_shape[axis] = depth
+                halo_bytes = x.numel() // x.shape[axis] * depth \
+                    * x.element_size()
                 halos = []
                 for step in (-1, 1):
                     nb = _neighbour(dj, dk, axis_name, step, dims)
@@ -501,14 +532,20 @@ class LocalTransport:
                         halos.append(torch.full(halo_shape, fill,
                                                 dtype=x.dtype,
                                                 device=x.device))
+                        written += halo_bytes
                     elif (dj, dk, step) in remote:
                         halos.append(remote[dj, dk, step].to(x.device))
+                        written += halo_bytes
                     else:
-                        halos.append(_halo_plane(grid[nb[0]][nb[1]], axis,
-                                                 depth, step).to(x.device))
+                        plane = _halo_plane(grid[nb[0]][nb[1]], axis, depth,
+                                            step)
+                        halos.append(plane.to(x.device))
+                        if plane.device != x.device:
+                            written += halo_bytes
                 row.append(torch.cat([halos[0], x, halos[1]], dim=axis))
+                written += row[-1].numel() * row[-1].element_size()
             out.append(row)
-        return out
+        return out, written
 
     def gather(self, grid, axis: int, device):
         """The whole grid of blocks on `device`: the blocks concatenated
@@ -736,7 +773,9 @@ def _sharded_propagate(tr, phi, tid, tri_verts, pos_axes, max_passes: int):
 
 
 def _upload(a, device):
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """A host array on `device`: one ``sdf.sharded.upload`` range."""
+    with tracing.span("sdf.sharded.upload", ranged=True):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def _shard_band(binned: ShardedBinned, dj: int, dk: int, tri_verts, origin,
@@ -833,7 +872,24 @@ def sharded_fields(binned: ShardedBinned, device_mesh: DeviceMesh, verts,
     """The sharded pipeline over the shards that `tr` (a
     :class:`LocalTransport` or ``multihost.DistributedTransport``) owns:
     (signed phi grid, id grid), None where another process owns a shard
-    (see :func:`sharded_sdf`)."""
+    (see :func:`sharded_sdf`).
+
+    One ``sdf.sharded.fields`` host span (the host's enqueueing of every
+    shard), and in it one ``sdf.sharded.card`` device span a device: from
+    a marker on its stream before the device's first launch to one after
+    its last."""
+    with tracing.span("sdf.sharded.fields"):
+        cards = [tracing.begin("sdf.sharded.card", device=d)
+                 for d in dict.fromkeys(tr.devices[tr.mine])]
+        out = _fields(binned, device_mesh, verts, tr)
+        for card in cards:
+            if card is not None:
+                card.end()
+        return out
+
+
+def _fields(binned: ShardedBinned, device_mesh: DeviceMesh, verts, tr):
+    """:func:`sharded_fields` inside its spans."""
     cfg = binned.config
     if cfg.far_field not in ("exact", "eikonal", "propagate"):
         raise ValueError(f"unknown far_field mode: {cfg.far_field}")

@@ -9,9 +9,11 @@ Each finished span becomes a :class:`Record`: its name, id, the id of its
 parent (the enclosing span on the same thread, or the span passed
 explicitly to a worker thread), the id of its root (shared by every span
 of one call into the API), host start and end (``time.perf_counter_ns``),
-the device milliseconds of a device span, and ``launches``, the change
+the device milliseconds of a device span, ``launches``, the change
 over the span in the sum of the nine kernel launch counters
-(:func:`launch_count`).
+(:func:`launch_count`), and ``counts``, named quantities that the code
+inside the span adds to it (``_Span.add``), such as the bytes that a halo
+exchange writes.
 
 Three kinds of span:
 
@@ -19,9 +21,11 @@ Three kinds of span:
 - a host range (``span(name, ranged=True)``) also enters the profiler's
   trace as a ``record_function`` range named as the span, while the
   profiler is on in the thread, so that the trace's idle gaps can be named
-  by it. Only spans that launch nothing on the device are ranges: the
-  profiler copies a range that encloses kernels onto the device's timeline
-  as an annotation;
+  by it. Only spans that launch no kernel of the program are ranges: the
+  profiler copies a range that encloses device work onto the device's
+  timeline as an annotation, so a reader of the trace leaves annotations
+  out of the device's work (the sharded path's ``sdf.sharded.upload`` and
+  ``sdf.sharded.halo`` ranges enclose torch's copies);
 - a device span (``span(name, device)``) records a pair of CUDA events on
   the current stream of a CUDA `device`. Its device time is the time the
   stream took to pass from the start marker to the end marker, so it
@@ -42,7 +46,7 @@ import dataclasses
 import itertools
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -62,7 +66,8 @@ _local = threading.local()
 @dataclasses.dataclass(frozen=True)
 class Record:
     """One finished span. `device_ms` is None for a host span and for a
-    device span off a CUDA device."""
+    device span off a CUDA device; `counts` holds what the code inside the
+    span added (``_Span.add``)."""
 
     name: str
     id: int
@@ -72,6 +77,8 @@ class Record:
     end_ns: int
     device_ms: Optional[float]
     launches: int
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict,
+                                               hash=False)
 
     @property
     def host_ms(self) -> float:
@@ -124,8 +131,8 @@ class _Span:
     """An open span; :meth:`end` files its record."""
 
     __slots__ = ("name", "id", "parent", "root", "ranged", "start_ns",
-                 "end_ns", "launches", "device_ms", "_stream", "_events",
-                 "_range")
+                 "end_ns", "launches", "counts", "device_ms", "_stream",
+                 "_events", "_range")
 
     def __init__(self, name: str, device, ranged: bool, parent):
         self.name = name
@@ -135,6 +142,7 @@ class _Span:
         self.parent = None if parent is None else parent.id
         self.root = self.id if parent is None else parent.root
         self.ranged = ranged
+        self.counts = {}
         self.device_ms = None
         self._events = self._range = None
         self._stream = None
@@ -164,6 +172,10 @@ class _Span:
         with _lock:
             _ring.append(self)
 
+    def add(self, name: str, n: int) -> None:
+        """Add `n` to the span's count `name`."""
+        self.counts[name] = self.counts.get(name, 0) + int(n)
+
     def __enter__(self) -> "_Span":
         self.begin()
         _stack().append(self)
@@ -184,7 +196,7 @@ class _Span:
             self._events = self._stream = None
         return Record(self.name, self.id, self.parent, self.root,
                       self.start_ns, self.end_ns, self.device_ms,
-                      self.launches)
+                      self.launches, dict(self.counts))
 
 
 class _Off:
@@ -212,13 +224,14 @@ def span(name: str, device=None, *, ranged: bool = False, parent=None):
     return _Span(name, device, ranged, parent)
 
 
-def begin(name: str, parent=None):
-    """Open a host span that ends later, maybe on another call, by its
-    ``end()``; it is not the enclosing span of what runs meanwhile. None
-    while tracing is off."""
+def begin(name: str, parent=None, device=None):
+    """Open a span that ends later, maybe on another call, by its
+    ``end()``; it is not the enclosing span of what runs meanwhile. A host
+    span, or with `device` a device span on that device's current stream.
+    None while tracing is off."""
     if parent is None and not _on and not _profiling():
         return None
-    return _Span(name, None, False, parent).begin()
+    return _Span(name, device, False, parent).begin()
 
 
 def spans() -> List[Record]:
