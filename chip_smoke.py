@@ -767,14 +767,14 @@ def r1_step_inputs(torch, device, mesh, grid):
     """R1's arguments in a step on `mesh` at `grid`: the pipeline's ids
     (``make_level_set3(return_tid=True)``), the parity and the triangles'
     vertices, as ``make_level_set3(verts=...)`` passes them."""
-    from sdfgenfast_tpu_torch.pipeline import (_parity_device, bin_mesh,
-                                               make_level_set3)
+    from sdfgenfast_tpu_torch.ops.sign_kernel import parity_sign
+    from sdfgenfast_tpu_torch.pipeline import bin_mesh, make_level_set3
 
     binned = bin_mesh(mesh, grid)
     with torch.no_grad():
         _, tid = make_level_set3(mesh, grid, binned=binned, device=device,
                                  return_tid=True)
-    parity = _parity_device(torch.from_numpy(
+    parity = parity_sign(torch.from_numpy(
         binned.parity_packed if binned.parity_packed is not None
         else binned.parity_crossings).to(device), grid.shape[0])
     tv = torch.from_numpy(mesh.verts[binned.tris.astype(np.int64)].astype(
@@ -1064,6 +1064,223 @@ def sep_table_steps(torch, device, card, box, box_grid, steps=3, timed=300):
           f"turn, loss read each step): torch-op table {walls['torch_ops']}, "
           f"kernel {walls['kernel']}", flush=True)
     return {"steps_byte_equal": steps, "step_ms": walls}
+
+
+# the kernels table's row of the sign stage: box36's transport
+SIGN_ROW = "box36 crossings (bin_mesh's)"
+
+
+def sign_bytes(kind_rows, cells, ncols, mode):
+    """Device-memory bytes of one sign-stage launch: the parity input
+    (packed: a byte a column a byte row; crossings: 2 B a column a row;
+    bool: a byte a cell), then 1 B a cell written (decode) or 4 B read and
+    4 B written (sign)."""
+    kind, rows = kind_rows
+    inp = {"packed": rows * ncols, "crossings": 2 * rows * ncols,
+           "bool": cells}[kind]
+    return inp + (cells if mode == "decode" else 8 * cells)
+
+
+def sign_kernel_cases(torch, device, box, box_grid, grids):
+    """(label, parity data on the card, transport, unsigned phi) of
+    :func:`check_sign_kernel`: box36 on its main-path grid and sphere82k at
+    256^3 in the transport ``bin_mesh`` picks and the other one, phi the
+    route's field (the signed call's absolute value, every 997th cell set
+    to +0.0); a 1024 x 512 x 512 block of sphere82k's 1024^3 packed parity
+    (a shard's block in the four-card cell) with a seeded phi."""
+    from sdfgenfast_tpu_torch.grid import sizing_python_api
+    from sdfgenfast_tpu_torch.ops import sign_host
+    from sdfgenfast_tpu_torch.pipeline import bin_mesh, make_level_set3
+
+    sphere, sgrid = grids[256]
+    for label, mesh, grid in (("box36", box, box_grid),
+                              ("sphere82k 256^3", sphere, sgrid)):
+        binned = bin_mesh(mesh, grid, device=device)
+        phi = make_level_set3(mesh, grid, binned=binned,
+                              device=device).abs()
+        phi.view(-1)[::997] = 0.0
+        ni = grid.shape[0]
+        cross = sign_host.crossings_host(mesh.verts, mesh.tris, grid)
+        forms = {"crossings": cross,
+                 "packed": sign_host.packed_from_crossings(cross, ni)}
+        picked = "packed" if binned.parity_packed is not None else "crossings"
+        for name in (picked, *(n for n in forms if n != picked)):
+            tag = " (bin_mesh's)" if name == picked else ""
+            yield (f"{label} {name}{tag}", torch.from_numpy(
+                forms[name]).to(device), name, phi)
+    mn, mx = sphere.bounds()
+    big = sizing_python_api(np.asarray(mn, np.float32),
+                            np.asarray(mx, np.float32), nx=1022)
+    if big.shape != (1024, 1024, 1024):
+        raise AssertionError(f"sphere82k 1024^3 grid {big.shape}")
+    packed = sign_host.parity_packed_host(sphere.verts, sphere.tris, big)
+    block = torch.from_numpy(np.ascontiguousarray(
+        packed[:, :512, :512])).to(device)
+    gen = torch.Generator(device=device).manual_seed(22)
+    phi = torch.rand((1024, 512, 512), generator=gen, device=device)
+    phi.view(-1)[::997] = 0.0
+    yield "sphere82k 1024^3 block (0, 0) packed", block, "packed", phi
+
+
+def check_sign_kernel(torch, device, card, box, box_grid, grids, reps=20):
+    """The sign stage's kernel (``ops/sign_kernel.parity_sign``,
+    ``csrc/sign.cu``) on the card against its twins run on the same card
+    (``parity_sign_reference``: the decode's torch ops, then
+    ``torch.where(p, -phi, phi)``), on :func:`sign_kernel_cases`: the
+    decode, the sign into a fresh tensor and in place, and the sign from
+    the decoded bool field (the device sign's input), each byte-equal (-0.0
+    where odd, so +0.0 cells are planted) and one launch. Times each launch
+    (torch.profiler, `reps` calls) beside the twins (CUDA events) and
+    against the byte bound (:func:`sign_bytes`). Returns {label: row}."""
+    from sdfgenfast_tpu_torch.ops import sign_kernel as sk
+
+    out = {}
+    for label, data, name, phi in sign_kernel_cases(torch, device, box,
+                                                    box_grid, grids):
+        ni = phi.shape[0]
+        want_p = sk.parity_sign_reference(data, ni)
+        want = sk.parity_sign_reference(data, ni, phi)
+        before = sk.parity_sign.launches
+        got_p = sk.parity_sign(data, ni)
+        got = sk.parity_sign(data, ni, phi)
+        from_bool = sk.parity_sign(got_p, ni, phi)
+        inplace = phi.clone()
+        same = sk.parity_sign(data, ni, inplace, inplace=True)
+        if sk.parity_sign.launches != before + 4 or same is not inplace:
+            raise AssertionError(f"sign kernel {label}: launches "
+                                 f"{sk.parity_sign.launches - before}")
+        if not torch.equal(got_p, want_p):
+            n = int((got_p != want_p).sum())
+            raise AssertionError(f"sign kernel {label}: decode differs at "
+                                 f"{n} of {want_p.numel()} cells")
+        sign_err = 0.0
+        for form, x in (("fresh", got), ("bool input", from_bool),
+                        ("in place", same)):
+            if not torch.equal(bits(torch, x), bits(torch, want)):
+                n = int((bits(torch, x) != bits(torch, want)).sum())
+                raise AssertionError(f"sign kernel {label} ({form}): {n} of "
+                                     f"{want.numel()} words differ from "
+                                     f"torch.where")
+            sign_err = max(sign_err, abs_err(x, want))
+        cells, ncols = phi.numel(), phi.shape[1] * phi.shape[2]
+        rows = (name, data.shape[0])
+        row = {"grid": list(phi.shape), "transport": name,
+               "rows": int(data.shape[0]),
+               "odd_cells": int(want_p.sum()),
+               "decode_max_abs_err": float(
+                   (got_p.int() - want_p.int()).abs().max()),
+               "sign_max_abs_err": sign_err}
+        for mode, fn in (("decode", lambda: sk.parity_sign(data, ni)),
+                         ("sign", lambda: sk.parity_sign(data, ni, phi))):
+            (ms, count), = launch_device_ms(torch, fn, reps,
+                                            r"parity_sign_kernel").values()
+            bound, _ = bound_ms(0, sign_bytes(rows, cells, ncols, mode))
+            row[f"{mode}_ms"], row[f"{mode}_traced"] = ms, count
+            row[f"{mode}_bound_ms"] = bound
+            row[f"{mode}_share"] = bound / ms
+        row["twin_decode_ms"] = cuda_ms(
+            torch, lambda: sk.parity_sign_reference(data, ni), reps)
+        row["twin_sign_ms"] = cuda_ms(
+            torch, lambda: sk.parity_sign_reference(data, ni, phi), reps)
+        print(f"[{card}] sign kernel {label} {tuple(phi.shape)} "
+              f"({rows[1]} rows): decode, sign (fresh, in place, from the "
+              f"bool field) byte-equal to the twins, one launch each; decode "
+              f"{row['decode_ms']:.4f} ms (bound {row['decode_bound_ms']:.4f}"
+              f", {row['decode_share']:.1%}), sign {row['sign_ms']:.4f} ms "
+              f"(bound {row['sign_bound_ms']:.4f}, {row['sign_share']:.1%}); "
+              f"twins: decode {row['twin_decode_ms']:.4f}, decode + where "
+              f"{row['twin_sign_ms']:.4f} ms", flush=True)
+        out[label] = row
+    return out
+
+
+def sign_kernel_steps(torch, device, card, box, box_grid, grids, steps=3,
+                      timed=300):
+    """The sign stage's kernel against its twins in the program, on the
+    card: ``sign_kernel.parity_sign`` swapped for ``parity_sign_reference``
+    (the torch ops) in the same package. box36 and sphere82k 256^3: the
+    generate grid, and `steps` ``SDFGenerator.train_step``s from one seeded
+    start (the benchmark's train mix: vertices and target 0.25 cells off,
+    lr 0.25 a vertex), each step's loss and vertices, byte-equal; one
+    launch a call and a step. Then box36's step wall (loss read every step,
+    `timed` steps a turn: twins, kernel, kernel, twins). Returns a dict."""
+    from sdfgenfast_tpu_torch import pipeline
+    from sdfgenfast_tpu_torch.mesh import Mesh
+    from sdfgenfast_tpu_torch.models import SDFGenerator
+    from sdfgenfast_tpu_torch.ops import sign_kernel as sk
+
+    kernel = sk.parity_sign
+
+    def twin(parity, ni, phi=None, *, inplace=False):
+        return sk.parity_sign_reference(parity, ni, phi)
+
+    def run(sign, fn):
+        pipeline.sign_kernel.parity_sign = sign
+        try:
+            before = kernel.launches
+            got = fn()
+            torch.cuda.synchronize()
+            return got, kernel.launches - before
+        finally:
+            pipeline.sign_kernel.parity_sign = kernel
+
+    out = {}
+    for label, mesh, grid in (("box36", box, box_grid),
+                              ("sphere82k 256^3", *grids[256])):
+        rng = np.random.default_rng(20)
+        dx = float(grid.dx)
+        verts = (mesh.verts + rng.uniform(-0.25, 0.25, mesh.verts.shape) * dx
+                 ).astype(np.float32)
+        target_verts = (verts + rng.uniform(-0.25, 0.25, verts.shape) * dx
+                        ).astype(np.float32)
+        target = pipeline.make_level_set3(Mesh(target_verts, mesh.tris), grid,
+                                          device=device)
+        model = SDFGenerator(Mesh(verts, mesh.tris), grid, device=device)
+        lr = 0.25 * len(verts)
+
+        def generate():
+            return bits(torch, pipeline.make_level_set3(
+                model.mesh, grid, binned=model.binned, device=device)).cpu()
+
+        def train(n=steps, read=None):
+            v, got = model.params, []
+            for _ in range(n):
+                v, loss = model.train_step(v, target, lr)
+                got.append((bits(torch, loss).cpu(), bits(torch, v).cpu())
+                           if read is None else read(loss))
+            return got
+
+        for what, fn, per in (("generate grid", generate, 1),
+                              ("train steps", train, steps)):
+            (old, _), (new, n) = run(twin, fn), run(kernel, fn)
+            if n != per:
+                raise AssertionError(f"{label} {what}: {n} sign launches, "
+                                     f"want {per}")
+            same = (torch.equal(old, new) if what == "generate grid" else
+                    all(torch.equal(a, b) and torch.equal(c, d)
+                        for (a, c), (b, d) in zip(old, new)))
+            if not same:
+                raise AssertionError(f"{label} {what}: differs between the "
+                                     f"kernel and the twins")
+        row = {"byte_equal_steps": steps}
+        if label == "box36":
+            walls = {"twins": [], "kernel": []}
+            for name in ("twins", "kernel", "kernel", "twins"):
+                sign = kernel if name == "kernel" else twin
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(sign, lambda: train(timed, float))
+                walls[name].append((time.perf_counter() - t0) / timed * 1e3)
+            row["step_ms"] = walls
+        print(f"[{card}] sign steps {label}: the generate grid and {steps} "
+              f"train steps' losses and vertices byte-equal on the kernel and "
+              f"the twins, one sign launch a call and a step"
+              + (f"; step wall (ms, {timed} steps a turn): twins "
+                 f"{row['step_ms']['twins']}, kernel "
+                 f"{row['step_ms']['kernel']}" if "step_ms" in row else ""),
+              flush=True)
+        out[label] = row
+    return out
 
 
 def check_dense(torch, device, label, kernel, twin, table, tris, dx,
@@ -2000,7 +2217,8 @@ def differentiable_half(torch, device, label, mesh, grid, counters):
     the step's tensors for the timings."""
     from sdfgenfast_tpu_torch.models import SDFGenerator
     from sdfgenfast_tpu_torch.ops import recompute as rc
-    from sdfgenfast_tpu_torch.pipeline import _parity_device, make_level_set3
+    from sdfgenfast_tpu_torch.ops.sign_kernel import parity_sign
+    from sdfgenfast_tpu_torch.pipeline import make_level_set3
 
     t0 = time.perf_counter()
     model = SDFGenerator(mesh, grid, device=device)
@@ -2024,7 +2242,7 @@ def differentiable_half(torch, device, label, mesh, grid, counters):
         _, tid = make_level_set3(mesh, grid, model.config, model.binned,
                                  device=device, return_tid=True)
     binned = model.binned
-    parity = _parity_device(torch.from_numpy(
+    parity = parity_sign(torch.from_numpy(
         binned.parity_packed if binned.parity_packed is not None
         else binned.parity_crossings).to(device), grid.shape[0])
     tris = torch.from_numpy(binned.tris.astype(np.int64)).to(device)
@@ -2505,13 +2723,13 @@ def sign_counters():
 
 def host_parity_on_card(torch, device, binned, ni):
     """The host sign's parity as the port's host path builds it on the card:
-    the host transport uploaded and expanded (``parity_from_crossings_device``
-    or the bit-packed unpack)."""
-    from sdfgenfast_tpu_torch.pipeline import _parity_device
+    the host transport uploaded and decoded by the sign kernel's decode
+    (``ops/sign_kernel.parity_sign``)."""
+    from sdfgenfast_tpu_torch.ops.sign_kernel import parity_sign
 
     data = (binned.parity_packed if binned.parity_packed is not None
             else binned.parity_crossings)
-    return _parity_device(torch.from_numpy(data).to(device), ni)
+    return parity_sign(torch.from_numpy(data).to(device), ni)
 
 
 def device_parity(torch, device, sign, grid, chunk, arrays=None):
@@ -2745,8 +2963,9 @@ def device_sign_times(torch, device, card, phase):
     wall split into host, device and copy back (:func:`route_times`, the
     parity's stream time within the call among its modules)."""
     from sdfgenfast_tpu_torch.ops import sign as sign_ops
+    from sdfgenfast_tpu_torch.ops.sign_kernel import parity_sign
     from sdfgenfast_tpu_torch.pipeline import (SDFConfig, _host_parity_choose,
-                                               _parity_device, _sign_binning)
+                                               _sign_binning)
 
     out = {}
     for label, r in phase.items():
@@ -2768,7 +2987,7 @@ def device_sign_times(torch, device, card, phase):
             t["host_parity_host"].append((t1 - t0) * 1e3)
             t["sign_binning_host"].append((t2 - t1) * 1e3)
         data = packed if packed is not None else cross
-        host_dev_ms = median_event_ms(torch, lambda: _parity_device(
+        host_dev_ms = median_event_ms(torch, lambda: parity_sign(
             torch.from_numpy(data).to(device), ni))
         sb_pad = _sign_binning(mesh, grid, dev_cfg)
         upload_ms = median_event_ms(torch, lambda: sign_arrays(
@@ -2958,7 +3177,8 @@ def check_offset_kernels(torch, device, mesh, grid):
     largest error of each."""
     from sdfgenfast_tpu_torch.ops import band_kernel, recompute as rc, vdt_kernel
     from sdfgenfast_tpu_torch.parallel import sharded as sh
-    from sdfgenfast_tpu_torch.pipeline import _parity_device, bin_mesh, make_level_set3
+    from sdfgenfast_tpu_torch.ops.sign_kernel import parity_sign
+    from sdfgenfast_tpu_torch.pipeline import bin_mesh, make_level_set3
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -3031,9 +3251,9 @@ def check_offset_kernels(torch, device, mesh, grid):
 
     phi1, tid1 = make_level_set3(mesh, grid, binned=binned, device=device,
                                  return_tid=True)
-    parity = _parity_device(dev(binned.parity_packed
-                                if binned.parity_packed is not None
-                                else binned.parity_crossings), grid.shape[0])
+    parity = parity_sign(dev(binned.parity_packed
+                             if binned.parity_packed is not None
+                             else binned.parity_crossings), grid.shape[0])
     upper = float(np.float32(sum(grid.shape)) * np.float32(dx))
     full = rc.recompute_forward(tv, tid1, parity, origin, dx, upper)
     # R1b's input on the main path: the train step's d loss / d phi, its
@@ -4674,7 +4894,8 @@ def main():
     from sdfgenfast_tpu_torch.io import native
     from sdfgenfast_tpu_torch.kernels import build
     from sdfgenfast_tpu_torch.mesh import torus_mesh
-    from sdfgenfast_tpu_torch.ops import band_kernel, dense, recompute, vdt_kernel
+    from sdfgenfast_tpu_torch.ops import (band_kernel, dense, recompute,
+                                          sign_kernel, vdt_kernel)
     from sdfgenfast_tpu_torch.tools import micro_bench as mb
     from sdfgenfast_tpu_torch.testing import box36
     from sdfgenfast_tpu_torch.pipeline import SDFConfig, bin_mesh, make_level_set3
@@ -4718,6 +4939,8 @@ def main():
     k1_table = check_sep_table(torch, device, card, box, box_grid, torus,
                                torus_grid)
     sep_table_steps(torch, device, card, box, box_grid)
+    sign_rows = check_sign_kernel(torch, device, card, box, box_grid, grids)
+    sign_kernel_steps(torch, device, card, box, box_grid, grids)
     k2 = check_k2(torch, device, *grids[256])
     k3_err = check_k3(torch, device)
     k4_err, k4_plain = check_k4(torch, device,
@@ -4728,7 +4951,8 @@ def main():
 
     # -- 4a. the binned path against the reference binary's goldens --------
     binned_counters = (band_kernel.band_coefs, band_kernel.band_rows,
-                       vdt_kernel.round_phase, vdt_kernel.chamfer)
+                       vdt_kernel.round_phase, vdt_kernel.chamfer,
+                       sign_kernel.parity_sign)
     launches = {fn.__name__: 0 for fn in binned_counters}
     results = {}
     for n, (mesh_name, golden, far_key, stride) in cases.items():
@@ -4748,10 +4972,10 @@ def main():
               f"{cold:.3f} s, launches {call}", flush=True)
         # the pyramid (ops/vdt.py): the coarsest level's ladder (7 rounds
         # at 64^3, 8 at 128^3), 5 at the middle level, 7 at full resolution;
-        # 2 chamfer passes in one K4 launch
+        # 2 chamfer passes in one K4 launch; the sign in place on its field
         rounds = {256: 19, 512: 20}[n]
         if call != {"band_coefs": 1, "band_rows": 1, "round_phase": rounds,
-                    "chamfer": 1}:
+                    "chamfer": 1, "parity_sign": 1}:
             raise AssertionError(f"sphere82k {n}^3 launches {call}")
         for k, v in call.items():
             launches[k] += v
@@ -4759,25 +4983,33 @@ def main():
 
     # -- 4b. the dense path: CLI goldens, box36, torus1024, a batch ----------
     cli_goldens()
-    dense.dense_stream.launches = dense.sep_table.launches = 0
+    dense_counters = (dense.dense_stream, dense.sep_table,
+                      sign_kernel.parity_sign)
+    for fn in dense_counters:
+        fn.launches = 0
     t0 = time.perf_counter()
     box_phi = generate_sdf(box.verts, box.tris, box_grid.origin, box_grid.dx,
                            *box_grid.shape, device=device)
     box_cold = time.perf_counter() - t0
-    dense_launches = {"box36": dense.dense_stream.launches}
-    table_launches = {"box36": dense.sep_table.launches}
-    dense.dense_stream.launches = dense.sep_table.launches = 0
+    dense_calls = {"box36": {fn.__name__: fn.launches
+                             for fn in dense_counters}}
+    for fn in dense_counters:
+        fn.launches = 0
     torus_phi, torus_meta = generate_from_mesh(torus.verts, torus.tris,
                                                nx=254, device=device)
-    dense_launches["torus1024"] = dense.dense_stream.launches
-    table_launches["torus1024"] = dense.sep_table.launches
+    dense_calls["torus1024"] = {fn.__name__: fn.launches
+                                for fn in dense_counters}
+    dense_launches = {k: c["dense_stream"] for k, c in dense_calls.items()}
+    table_launches = {k: c["sep_table"] for k, c in dense_calls.items()}
+    sign_launches = {k: c["parity_sign"] for k, c in dense_calls.items()}
     launches["dense_stream"] = sum(dense_launches.values())
     print(f"dense-path launches: K1 {dense_launches}, its table "
-          f"{table_launches}; box36 cold call {box_cold:.3f} s", flush=True)
-    if dense_launches != {"box36": 1, "torus1024": 1} or table_launches != {
-            "box36": 1, "torus1024": 1}:
-        raise AssertionError("box36 and torus1024 take one K1 launch and "
-                             "one table launch each")
+          f"{table_launches}, the sign {sign_launches}; box36 cold call "
+          f"{box_cold:.3f} s", flush=True)
+    if any(c != {"dense_stream": 1, "sep_table": 1, "parity_sign": 1}
+           for c in dense_calls.values()):
+        raise AssertionError("box36 and torus1024 take one K1 launch, one "
+                             "table launch and one sign launch each")
     if torus_meta["dx"] != torus_grid.dx or torus_phi.shape != torus_grid.shape:
         raise AssertionError("generate_from_mesh sized the torus differently")
     check_dense_vs_binned(torch, device, "box36", box, box_grid, box_phi)
@@ -4876,7 +5108,8 @@ def main():
     diff_counters = (band_kernel.band_coefs, band_kernel.band_rows,
                      vdt_kernel.round_phase, vdt_kernel.chamfer,
                      dense.dense_stream, recompute.recompute_terms,
-                     recompute.recompute_forward, recompute.recompute_backward)
+                     recompute.recompute_forward, recompute.recompute_backward,
+                     sign_kernel.parity_sign)
     diff = {
         "sphere82k": differentiable_half(torch, device, "sphere82k 256^3",
                                          *grids[256], diff_counters),
@@ -4887,6 +5120,12 @@ def main():
         print(f"differentiable {label}: loss {r['loss']:.6e}, launches "
               f"{r['launches']}, SDFGenerator binning {r['bin_s']:.3f} s",
               flush=True)
+        # the step decodes the parity once for R1 and R1b, and signs nothing
+        # else
+        if r["launches"]["parity_sign"] != 1:
+            raise AssertionError(f"differentiable {label}: "
+                                 f"{r['launches']['parity_sign']} sign "
+                                 f"launches a step, want 1")
     need = {"sphere82k": ("band_coefs", "band_rows", "round_phase",
                           "chamfer", "recompute_forward",
                           "recompute_backward"),
@@ -5144,6 +5383,9 @@ def main():
                       k1_table["box36"]["bound_by"]),
         "sep_table_torus1024": (k1_table["torus1024"]["bound_ms"],
                                 k1_table["torus1024"]["bound_by"]),
+        "parity_sign": (sign_rows[SIGN_ROW]["sign_bound_ms"], "bytes"),
+        "parity_sign_decode": (sign_rows[SIGN_ROW]["decode_bound_ms"],
+                               "bytes"),
         "band_coefs": k2["bounds"]["coefs"],
         "band_rows": k2["bounds"]["walk"],
         "vdt_round": k3_bound(grids[256][1].shape),
@@ -5285,6 +5527,24 @@ def main():
          "max_abs_err": k1_table["torus1024"]["max_abs_err"],
          "ms": k1_table["torus1024"]["kernel_ms"],
          "plain_ms": k1_table["torus1024"]["torch_ops_unqueued_ms"]},
+        # the sign stage on box36's crossings (jnp in the JAX package, no
+        # Pallas kernel): the sign (launches: box36's generate call), and
+        # the decode alone (launches: box36's train step); plain: the torch
+        # ops it replaces on the same card
+        {"name": "parity_sign", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/sign.cu",
+         "replaces": "sdfgenfast_tpu/pipeline.py:537",
+         "launches": sign_launches["box36"],
+         "max_abs_err": sign_rows[SIGN_ROW]["sign_max_abs_err"],
+         "ms": sign_rows[SIGN_ROW]["sign_ms"],
+         "plain_ms": sign_rows[SIGN_ROW]["twin_sign_ms"]},
+        {"name": "parity_sign_decode", "route": "cuda",
+         "source": "sdfgenfast_tpu_torch/csrc/sign.cu",
+         "replaces": "sdfgenfast_tpu/pipeline.py:555",
+         "launches": diff["box36"]["launches"]["parity_sign"],
+         "max_abs_err": sign_rows[SIGN_ROW]["decode_max_abs_err"],
+         "ms": sign_rows[SIGN_ROW]["decode_ms"],
+         "plain_ms": sign_rows[SIGN_ROW]["twin_decode_ms"]},
         # K2's two launches: the coefficients the Pallas body builds per
         # candidate (band_pallas.py:76), then the walk
         {"name": "band_coefs", "route": "cuda",

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "sdf_dense_stream_counted": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P,
                                  _P, _P],
     "sdf_sep_table": [_P, _I, _P, _I, _P, _P, _P],
+    "sdf_parity_sign": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
     "sdf_recompute_terms": [_P, _I, _P, _P],
     "sdf_recompute_phi": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F,
                           _F, _F, _F, _I, _I, _I, _P, _P],

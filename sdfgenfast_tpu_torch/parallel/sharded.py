@@ -74,6 +74,7 @@ from ..ops import dense as dense_ops
 from ..ops import recompute as recompute_ops
 from ..ops import sign as sign_ops
 from ..ops import sign_host as sign_host_ops
+from ..ops import sign_kernel
 from ..ops import sweep as sweep_ops
 from ..ops import vdt as vdt_ops
 from ..ops import vdt_kernel
@@ -805,12 +806,13 @@ def _shard_band(binned: ShardedBinned, dj: int, dk: int, tri_verts, origin,
 
 
 def _shard_parity(binned: ShardedBinned, dj: int, dk: int, device, jk_offset):
-    """The shard's (ni, nj_l, nk_l) parity: the host parity's packed block,
-    or the device sign on the shard's own rays (``parity_field`` with its
-    (j, k) offset)."""
+    """The shard's (ni, nj_l, nk_l) parity: the host parity's packed block
+    decoded (one ``sign_kernel.parity_sign`` launch on a card), or the
+    device sign on the shard's own rays (``parity_field`` with its (j, k)
+    offset)."""
     ni = binned.block[0]
     if binned.sign_ids is None:
-        return sign_host_ops.unpack_parity_device(
+        return sign_kernel.parity_sign(
             _upload(binned.parity_packed[dj, dk], device), ni)
     cfg = binned.config
     return sign_ops.parity_field(

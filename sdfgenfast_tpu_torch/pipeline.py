@@ -15,7 +15,7 @@ Dense path (``"exact"``, at most ``dense_max_tris`` triangles,
   1. host: the x-ray parity (or the 2D sign binning), no band binning;
   2. device: K1's table, the vertex gather included (one kernel) -> K1
      (one kernel up to 1024 triangles): the exact distance of every cell to
-     every triangle -> sign from the parity.
+     every triangle -> sign from the parity, in place (one kernel).
 
 Binned exact path (``"exact"``, :func:`exact_core`):
 
@@ -31,7 +31,8 @@ Binned exact path (``"exact"``, :func:`exact_core`):
      package's axis permutation; with ``vdt_max_hop`` the capped ladder
      (every round Jacobi, in K3); with only ``vdt_extra_rounds`` the flat
      ladder (Gauss-Seidel rounds in torch, strides 2 and 4 in K3);
-  4. device: K4 chamfer relaxation, then the sign from the parity.
+  4. device: K4 chamfer relaxation, then the sign from the parity (one
+     kernel, ``ops/sign_kernel.parity_sign``).
 
 ``"propagate"`` and ``"eikonal"`` (:func:`sweep_core`): the host bins with
 ``prune=False`` and the seed band ``exact_band``; on the device
@@ -44,10 +45,11 @@ Binned exact path (``"exact"``, :func:`exact_core`):
     band; the band's phi is evaluated again from its ids by R1.
 
 Vertex gradients (``make_level_set3(..., verts=...)``): the distance
-pipeline runs without gradients and keeps only the closest-triangle ids;
-phi is then evaluated again from the vertices by the recompute kernels
-R1/R1b, so the gradient reaches `verts` through every cell (``"eikonal"``:
-through the seeded band only).
+pipeline runs without gradients, builds no signed field and keeps only the
+closest-triangle ids; the parity is decoded once, and phi is evaluated
+again from the vertices by the recompute kernels R1/R1b, so the gradient
+reaches `verts` through every cell (``"eikonal"``: through the seeded band
+only).
 
 Every step takes an explicit ``torch.device``. CUDA tensors go through the
 hand-written kernels; CPU tensors through their plain-torch twins. The
@@ -74,6 +76,7 @@ from .ops import dense as dense_ops
 from .ops import recompute as recompute_ops
 from .ops import sign as sign_ops
 from .ops import sign_host as sign_host_ops
+from .ops import sign_kernel
 from .ops import sweep as sweep_ops
 from .ops import tiled as tiled_ops
 from .ops import vdt as vdt_ops
@@ -443,39 +446,32 @@ def binned_from_arrays(grid: GridSpec, config: SDFConfig, *, tris,
         None if cand_valid is None else np.asarray(cand_valid, bool), sign)
 
 
-def _parity_device(parity_data, ni):
-    """Parity for either host transport (bit-packed uint8 or int16
-    crossing positions), or a ready bool field (the device sign's)."""
-    if parity_data.dtype == torch.bool:
-        return parity_data
-    if parity_data.dtype == torch.int16:
-        return sign_host_ops.parity_from_crossings_device(parity_data, ni)
-    return sign_host_ops.unpack_parity_device(parity_data, ni)
-
-
 def dense_sign_core(verts, tris, parity_data, origin, dx: float, *,
                     grid_shape):
     """The dense path on device tensors (``sdfgenfast_tpu.pipeline.
     _dense_sign_core``): K1's table (the vertex gather inside it) -> K1 ->
-    sign from the parity.
+    sign from the parity, in place on K1's field.
 
     verts (N, 3) f32, tris (M, 3) int32, parity_data (uint8 packed, int16
-    crossings or the bool field), origin (3,) f32, all on one device; dx a
-    float32-representable float. Returns (signed phi, tid), each
-    (ni, nj, nk)."""
+    crossings or the bool field; None for the unsigned field), origin (3,)
+    f32, all on one device; dx a float32-representable float. Returns
+    (phi, tid), each (ni, nj, nk)."""
     with tracing.span("sdf.dense.table", verts.device):
         table = dense_ops.sep_table(verts, origin, tris)
     with tracing.span("sdf.dense.k1", verts.device):
         phi, tid = dense_ops.dense_stream(
             table, float(np.float32(dx)),
             grid_shape=tuple(int(n) for n in grid_shape))
-    return _signed(phi, parity_data, grid_shape[0]), tid
+    return _signed(phi, parity_data, grid_shape[0], inplace=True), tid
 
 
-def _signed(phi, parity_data, ni: int):
-    """`phi` negated inside, by the parity of `parity_data`."""
+def _signed(phi, parity_data, ni: int, inplace: bool):
+    """`phi` negated inside, by the parity of `parity_data` (None: `phi`
+    as it is), in one kernel; `inplace` where the caller owns `phi`."""
+    if parity_data is None:
+        return phi
     with tracing.span("sdf.sign", phi.device):
-        return torch.where(_parity_device(parity_data, ni), -phi, phi)
+        return sign_kernel.parity_sign(parity_data, ni, phi, inplace=inplace)
 
 
 def _band_k2(tri_local, band, dx: float, *, grid_shape, tiles_dim, **coord):
@@ -527,13 +523,14 @@ def exact_core(verts, tris, band, parity_data, origin, dx: float, *,
     (``sdfgenfast_tpu.pipeline._exact_core``).
 
     verts (N, 3) f32, tris (M, 3) int32, parity_data (uint8 packed, int16
-    crossings or the bool field), origin (3,) f32 tensors, all on one
-    device; dx a float32-representable float. `band` holds the binning's
-    int32/bool tensors in the layout the route reads: at 8^3 tiles K2's
-    CSR ("ids", "pair", "off", "cnt"), at other tiles the tile evaluator's
-    (A, K) matrices ("active_ids", "cand", "cand_valid"). `ladder` is
-    :func:`ladder_schedule`'s (strides, jacobi), or None for the pyramid.
-    Returns (signed phi, tid), each (ni, nj, nk).
+    crossings or the bool field; None for the unsigned field), origin (3,)
+    f32 tensors, all on one device; dx a float32-representable float.
+    `band` holds the binning's int32/bool tensors in the layout the route
+    reads: at 8^3 tiles K2's CSR ("ids", "pair", "off", "cnt"), at other
+    tiles the tile evaluator's (A, K) matrices ("active_ids", "cand",
+    "cand_valid"). `ladder` is :func:`ladder_schedule`'s (strides, jacobi),
+    or None for the pyramid. Returns (phi, tid), each (ni, nj, nk); the sign
+    goes in place on K4's field (into a fresh tensor without K4).
     """
     device = verts.device
     with tracing.span("sdf.band", device):
@@ -575,7 +572,8 @@ def exact_core(verts, tris, band, parity_data, origin, dx: float, *,
     if chamfer_passes > 0:
         with tracing.span("sdf.chamfer", device):
             phi = vdt_kernel.chamfer(phi, dx, chamfer_passes)
-    return _signed(phi, parity_data, grid_shape[0]), tid
+    return _signed(phi, parity_data, grid_shape[0],
+                   inplace=chamfer_passes > 0), tid
 
 
 def sweep_core(tri_verts, band, parity_data, origin, dx: float, *, mode,
@@ -588,14 +586,14 @@ def sweep_core(tri_verts, band, parity_data, origin, dx: float, *, mode,
     - ``"propagate"``: the plane scans; returns (their tid, parity, None);
     - ``"eikonal"``: `eikonal_iters` (default 2 * max(n)) Jacobi
       iterations outside the seeded band; returns (the band's tid, parity,
-      the signed eikonal field).
+      the eikonal field, signed in place by the parity's kernel).
 
     tri_verts (M, 3, 3) f32 world vertices and origin (3,) f32 tensors on
     one device; dx a float32-representable float."""
     phi0, tid0 = band_ops.band_distance_field(
         tri_verts, band["active_ids"], band["cand"], band["cand_valid"],
         origin, dx, tile_shape, tiles_dim, grid_shape, chunk=band_chunk)
-    parity = _parity_device(parity_data, grid_shape[0])
+    parity = sign_kernel.parity_sign(parity_data, grid_shape[0])
     if mode == "propagate":
         _, tid, _ = sweep_ops.propagate_closest_triangles(
             phi0, tid0, tri_verts, origin, dx, max_passes=max_passes)
@@ -603,7 +601,8 @@ def sweep_core(tri_verts, band, parity_data, origin, dx: float, *, mode,
     iters = (eikonal_iters if eikonal_iters is not None
              else 2 * max(grid_shape))
     phi = sweep_ops.eikonal_far_field(phi0, tid0 >= 0, dx, iters)
-    return tid0, parity, torch.where(parity, -phi, phi)
+    return tid0, parity, sign_kernel.parity_sign(parity, grid_shape[0], phi,
+                                                 inplace=True)
 
 
 def _call_names(binned: Binned, config: SDFConfig, dense: bool):
@@ -725,12 +724,14 @@ def _level_set3(mesh: Mesh, grid: GridSpec, config: SDFConfig,
             parity = sign_ops.parity_field(
                 *(d[k] for k in sign_names), sb.tile_shape, sb.tiles_dim,
                 grid.shape, chunk=config.sign_chunk)
+        # with `verts` R1 signs its own phi: the route's stays unsigned
+        route_parity = None if verts is not None else parity
         if dense:
-            phi, tid = dense_sign_core(v.detach(), tris, parity, origin, dx,
-                                       grid_shape=grid.shape)
+            phi, tid = dense_sign_core(v.detach(), tris, route_parity,
+                                       origin, dx, grid_shape=grid.shape)
         elif config.far_field == "exact":
             phi, tid = exact_core(
-                v.detach(), tris, band, parity, origin, dx,
+                v.detach(), tris, band, route_parity, origin, dx,
                 grid_shape=grid.shape, tiles_dim=binned.tiles_dim,
                 tile_shape=binned.tile_shape,
                 # the freeze threshold is capped by the band binned with
@@ -749,7 +750,7 @@ def _level_set3(mesh: Mesh, grid: GridSpec, config: SDFConfig,
     if verts is not None or config.far_field != "exact":
         if config.far_field == "exact":
             with tracing.span("sdf.sign", device):
-                parity_b = _parity_device(parity, grid.shape[0])
+                parity_b = sign_kernel.parity_sign(parity, grid.shape[0])
         phi = recompute_ops.recompute_stage(
             v[tris.long()], tid, parity_b,
             np.asarray(grid.origin, np.float32), dx)

@@ -10,10 +10,12 @@ times queued, then one synchronize:
 - "dense kernel": ``ops.dense.dense_distance_field`` on the gathered
   triangle vertices (K1 and its table, built by torch, as the main path
   runs them);
-- "unpack+sign": ``pipeline._parity_device`` and ``torch.where``, the sign
-  steps of ``pipeline.dense_sign_core``, fed from the parity transport that
-  ``bin_mesh`` chose ("auto": the packed field or the int16 crossings,
-  whichever is smaller, the JAX package's choice on the same case).
+- "unpack+sign": ``ops.sign_kernel.parity_sign`` (one kernel on a card:
+  the parity decoded and phi signed in one pass), the sign step of
+  ``pipeline.dense_sign_core``, into a fresh tensor, fed from the parity
+  transport that ``bin_mesh`` chose ("auto": the packed field or the int16
+  crossings, whichever is smaller, the JAX package's choice on the same
+  case).
 
 The host clock over the queued calls gives ``ms/iter`` and the voxel rate,
 as the JAX tool prints them. On the card each stage also has two device
@@ -44,7 +46,8 @@ import torch
 from ..grid import sizing_mode2a_proportional
 from ..mesh import box_mesh
 from ..ops.dense import dense_distance_field
-from ..pipeline import SDFConfig, _parity_device, bin_mesh
+from ..ops.sign_kernel import parity_sign
+from ..pipeline import SDFConfig, bin_mesh
 from .timing import card_line, sync, tool_device
 
 __all__ = ["REPS", "SPIN_CYCLES", "amortized", "spin_queued_ms", "inputs",
@@ -154,7 +157,7 @@ def _size(mesh, nx: int, device, reps: int):
     (phi, tid), t_k, e_k = amortized("dense kernel", kernel, device, reps)
 
     def sign():
-        return torch.where(_parity_device(pdata, ni), -phi, phi)
+        return parity_sign(pdata, ni, phi)
 
     signed, t_s, e_s = amortized("unpack+sign", sign, device, reps)
     v = grid.num_cells / ((t_k + t_s) / 1e3)

@@ -15,10 +15,11 @@ breakdown of the path users run. Stages:
   freeze mask, the pyramid (``ops/vdt.vdt_pyramid_far_field``) split into
   its K3 rounds (summed, with their count) and its glue (``seed_state``,
   ``_downsample2``, ``_upsample_merge``, ``finish_state``) and the axis
-  permutation around it, K4, the parity unpack, the sign apply;
+  permutation around it, K4, the sign apply (``ops/sign_kernel.
+  parity_sign``: the parity decoded and phi signed in one kernel);
 - the dense path (``pipeline.dense_sign_core``): the upload, K1's table
-  (``ops/dense.sep_table``, the vertex gather inside it), K1, the parity
-  unpack, the sign apply;
+  (``ops/dense.sep_table``, the vertex gather inside it), K1, the sign
+  apply;
 - then the copy back (``upload.to_host``, host clock) and the warm
   end-to-end call (``make_level_set3`` on a binning kept on the device,
   synchronised; the min of 3, as the JAX tool takes it).
@@ -55,7 +56,7 @@ import torch
 from .. import pipeline, upload
 from ..grid import sizing_mode2a_proportional
 from ..mesh import icosphere, torus_mesh
-from ..ops import band_kernel, dense, tiled, vdt, vdt_kernel
+from ..ops import band_kernel, dense, sign_kernel, tiled, vdt, vdt_kernel
 from ..pipeline import SDFConfig
 from ..testing import box36
 from .timing import Stages, card_line, sync, tool_device
@@ -201,9 +202,9 @@ def staged(mesh, grid, config: SDFConfig, device, repeats: int = 3):
             phi = st.run("K4 chamfer", lambda: vdt_kernel.chamfer(
                 phi, dx, config.chamfer_passes))
         info["exact"] = freeze
-    parity = st.run("parity unpack",
-                    lambda: pipeline._parity_device(parity_data, ni))
-    phi = st.run("sign apply", lambda: torch.where(parity, -phi, phi))
+    # into a fresh tensor: a stage runs more than once
+    phi = st.run("sign apply",
+                 lambda: sign_kernel.parity_sign(parity_data, ni, phi))
     info["stages"], info["counts"] = st.ms, st.calls
     return phi, tid, info
 

@@ -10,7 +10,7 @@ parent (the enclosing span on the same thread, or the span passed
 explicitly to a worker thread), the id of its root (shared by every span
 of one call into the API), host start and end (``time.perf_counter_ns``),
 the device milliseconds of a device span, ``launches``, the change
-over the span in the sum of the nine kernel launch counters
+over the span in the sum of the ten kernel launch counters
 (:func:`launch_count`), and ``counts``, named quantities that the code
 inside the span adds to it (``_Span.add``), such as the bytes that a halo
 exchange writes.
@@ -104,13 +104,13 @@ def launch_count() -> int:
     """The sum of the kernel wrappers' ``.launches`` counters."""
     global _counted
     if not _counted:
-        from .ops import band_kernel, dense, recompute, vdt_kernel
+        from .ops import band_kernel, dense, recompute, sign_kernel, vdt_kernel
 
         _counted = (dense.sep_table, dense.dense_stream,
                     band_kernel.band_coefs, band_kernel.band_rows,
                     vdt_kernel.round_phase, vdt_kernel.chamfer,
                     recompute.recompute_terms, recompute.recompute_forward,
-                    recompute.recompute_backward)
+                    recompute.recompute_backward, sign_kernel.parity_sign)
     return sum(f.launches for f in _counted)
 
 

@@ -35,7 +35,7 @@ import sdfgenfast_tpu as J
 from sdfgenfast_tpu import pipeline as jpipe
 from sdfgenfast_tpu.parallel import sharded as jsh
 import sdfgenfast_tpu_torch as P
-from sdfgenfast_tpu_torch import pipeline as ppipe
+from sdfgenfast_tpu_torch.ops import sign_kernel
 from sdfgenfast_tpu_torch.parallel import sharded as psh
 
 CPU = torch.device("cpu")
@@ -93,7 +93,7 @@ def grads(request):
     jw = jnp.asarray(w)
     if request.param == "ico1-64":
         _, tid = psh.sharded_sdf(sb, dm, verts=mesh.verts, return_tid=True)
-        parity = ppipe._parity_device(torch.from_numpy(
+        parity = sign_kernel.parity_sign(torch.from_numpy(
             binned.parity_packed if binned.parity_packed is not None
             else binned.parity_crossings), shape[0]).numpy()
 

@@ -172,7 +172,8 @@ def test_train_step_spans_and_backward_root():
                     "sdf.sign": "sdf.make_level_set3",
                     "sdf.recompute.forward": "sdf.make_level_set3",
                     "sdf.recompute.backward": None}
-    assert sum(r.name == "sdf.sign" for r in recs) == 2
+    # the parity decoded once, for R1 and R1b: no signed field is built
+    assert sum(r.name == "sdf.sign" for r in recs) == 1
 
 
 def test_profiler_turns_tracing_on_and_sees_only_host_ranges():
