@@ -112,16 +112,16 @@ Hopper card, nvcc and a C++ compiler. Phases (each raises on failure):
      148, its launches exact (K1 0, K2 1 + 1, K3 the pyramid's schedule, K4
      1), held to the analytic torus (``testing.torus_bars``: 0 sign
      mismatches off the tessellation's gap, the exact band within the gap,
-     never below the exact distance, within 0.2 dx above it), the staged
-     run (``tools.profile_stages.staged``) bit-equal to the call; (b) box36
+     never below the exact distance, within 0.2 dx above it); (b) box36
      at the box64 and box128 grids (dense) against the binned path; (c)
      ``tools.bench`` through its command line on all seven configurations
      (its JSON line), ``tools.profile_stages`` on box36 and sphere82k at
-     256 and torus100k at 256 and 512, each staged run bit-equal to its
-     production call; (d) ``tools.batch_bench`` with 4 meshes, the batch
-     bit-equal to the meshes one at a time; (e) K2, K3 and K4 on the
-     torus's own inputs at both grids against their twins, timed beside
-     their bounds (from the torus's CSR), as kernel-table rows;
+     256 and torus100k at 256 and 512, each run's stage launches summing to
+     its call's, K3's the pyramid's schedule; (d) ``tools.batch_bench``
+     with 4 meshes, the batch bit-equal to the meshes one at a time; (e)
+     K2, K3 and K4 on the torus's own inputs at both grids against their
+     twins, timed beside their bounds (from the torus's CSR), as
+     kernel-table rows;
  12. the last of the JAX package's tools, after every phase above: (a)
      ``tools.stress_256`` through its command line (a fresh process): 10
      iterations of sphere82k at 256^3, each bit-identical to the first,
@@ -4520,16 +4520,13 @@ def torus_oracle_phase(torch, device, card):
     ``generate_sdf`` on bench.py's grids at 256 and 512, its launches
     checked exactly (K1 0, K2 1 + 1, K3 the pyramid's schedule, K4 1), held
     to the analytic torus (``testing.torus_bars``): 0 sign mismatches off
-    the tessellation's gap g, the band cells the binning marks exact (the
-    staged run's freeze mask, the staged field bit-equal to this call's)
-    within g + 1e-5 of |s|, no cell below |s| - g - 1e-5, none above |s| +
-    g + 0.2 dx. Returns (mesh, {nx: (grid, launches, bars)})."""
+    the tessellation's gap g, the band cells the binning evaluates exactly
+    (|phi| <= 3 dx, the seed band) within g + 1e-5 of |s|, no cell below
+    |s| - g - 1e-5, none above |s| + g + 0.2 dx. Returns (mesh, {nx: (grid,
+    launches, bars)})."""
     from sdfgenfast_tpu_torch import generate_sdf, testing
     from sdfgenfast_tpu_torch.grid import sizing_mode2a_proportional
     from sdfgenfast_tpu_torch.mesh import torus_mesh
-    from sdfgenfast_tpu_torch.pipeline import SDFConfig
-    from sdfgenfast_tpu_torch.tools import profile_stages
-    from sdfgenfast_tpu_torch.upload import to_host
 
     mesh = torus_mesh()
     gap = testing.tessellation_gap(mesh, device=device)
@@ -4555,17 +4552,15 @@ def torus_oracle_phase(torch, device, card):
                                  f"{launches}, the schedule gives {want}")
         if phi.shape != grid.shape or not np.isfinite(phi).all():
             raise AssertionError(f"torus100k {grid.shape}: bad output")
-        sphi, _, info = profile_stages.staged(mesh, grid, SDFConfig(), device)
-        if not np.array_equal(to_host(sphi).view(np.int32),
-                              phi.view(np.int32)):
-            raise AssertionError(f"torus100k {grid.shape}: the staged run "
-                                 f"differs from generate_sdf")
-        del sphi
-        bars = testing.torus_bars(torch.from_numpy(phi).to(device), grid,
-                                  gap, info["exact"])
+        # the band cells: the binning evaluates every cell within the seed
+        # band (3 dx) exactly, and the far field never lowers a cell below
+        # exact
+        phi_d = torch.from_numpy(phi).to(device)
+        bars = testing.torus_bars(phi_d, grid, gap,
+                                  phi_d.abs() <= 3 * grid.dx)
         testing.check_torus_bars(f"torus100k {grid.shape}", bars, gap,
                                  grid.dx)
-        del info
+        del phi_d
         torch.cuda.empty_cache()
         print(f"torus100k {grid.shape} through generate_sdf: launches "
               f"{launches}; against the analytic torus 0 sign mismatches "
@@ -4573,8 +4568,8 @@ def torus_oracle_phase(torch, device, card):
               f"(gap {gap:.3e}), never below |s| - gap (by "
               f"{-bars['below']:.3e}), far field above |s| + gap by at most "
               f"{bars['excess_dx']['hole']:.4f} dx in the hole and "
-              f"{bars['excess_dx']['outside']:.4f} dx outside it; staged run "
-              f"bit-equal; cold call {cold:.3f} s", flush=True)
+              f"{bars['excess_dx']['outside']:.4f} dx outside it; cold call "
+              f"{cold:.3f} s", flush=True)
         out[nx] = (grid, launches, bars)
     return mesh, out
 
@@ -4609,8 +4604,10 @@ def tools_phase(torch, device, card):
     """Phase 11c-d: the port's tools on the card. ``tools.bench`` through
     its command line (a fresh process) on all seven configurations, at
     least 10 samples each; ``tools.profile_stages`` on box36 at 256,
-    sphere82k at 256 and torus100k at 256 and 512, each staged run
-    bit-equal to its production call; ``tools.batch_bench`` with 4 meshes,
+    sphere82k at 256 and torus100k at 256 and 512, in each run the launches
+    of the stages that split a call summing to its ``sdf.make_level_set3``
+    span's, and on the sphere and the torus ``sdf.k3``'s the pyramid's
+    schedule (``pyramid_rounds``); ``tools.batch_bench`` with 4 meshes,
     the batch bit-equal to the meshes one at a time. Each prints its JSON
     line. Returns (bench line, profile runs, batch row)."""
     from sdfgenfast_tpu_torch.tools import batch_bench, bench, profile_stages
@@ -4638,8 +4635,21 @@ def tools_phase(torch, device, card):
     runs = []
     for args in (["256", "box"], ["256", "sphere"], ["256", "512", "torus"]):
         runs += profile_stages.main(args)["runs"]
-    if not all(run["bit_equal"] for run in runs):
-        raise AssertionError("a staged run differs from its production call")
+    for run in runs:
+        launches = run["launches"]
+        split = sum(launches.get(k, 0) for k in profile_stages.SPLIT)
+        want = launches["sdf.make_level_set3"]
+        if run["mesh"] != "box":
+            want_k3 = pyramid_rounds(tuple(run["grid"]))
+            if launches["sdf.k3"] != want_k3:
+                raise AssertionError(f"profile_stages {run['mesh']} "
+                                     f"{run['grid']}: sdf.k3 launches "
+                                     f"{launches['sdf.k3']}, the schedule "
+                                     f"gives {want_k3}")
+        if split != want or launches["sdf.generate_sdf"] != want:
+            raise AssertionError(f"profile_stages {run['mesh']} "
+                                 f"{run['grid']}: stage launches {launches}"
+                                 f" sum to {split}, the call's {want}")
     batch = batch_bench.main(["4"])
     return line, runs, batch
 

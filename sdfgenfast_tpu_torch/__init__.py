@@ -22,10 +22,10 @@ devices (``parallel``: ``make_device_mesh``, ``bin_mesh_sharded``,
 ``sharded_sdf``; ``generate_sdf_batch(device_mesh=...)`` and
 ``SDFGenerator(device_mesh=...)``) and the CLI (``python -m sdfgenfast_tpu_torch.cli``,
 the ``sdfgen-torch`` script). ``tools.micro_bench`` probes the card's
-ceilings (kernels P1-P4); ``tools.bench``, ``tools.profile_stages``,
-``tools.batch_bench``, ``tools.stress_256``, ``tools.kernel_bench`` and
-``tools.scaling_bench`` are the counterparts of ``bench.py`` and the JAX
-package's tools.
+ceilings (kernels P1-P4); ``tools.bench``, ``tools.profile_stages`` (the
+stages of one call, from its spans), ``tools.batch_bench``,
+``tools.stress_256``, ``tools.kernel_bench`` and ``tools.scaling_bench``
+are the counterparts of ``bench.py`` and the JAX package's tools.
 """
 
 __version__ = "0.1.0"

@@ -11,6 +11,10 @@ The library lands in ``build/sdfgenfast_tpu_torch/`` at the repository root,
 named by a hash of the sources and flags, so an edited source rebuilds on
 next use. Nothing here runs at import time: the first kernel launch (or an
 explicit :func:`library` call) builds and loads.
+
+Each of the program's kernel wrappers registers where it is defined
+(:func:`counted`): its ``.launches`` counter joins :data:`COUNTED`, which
+``tracing.launch_count`` sums.
 """
 
 from __future__ import annotations
@@ -72,6 +76,16 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+COUNTED: list = []  # the program's kernel wrappers, in import order
+
+
+def counted(fn):
+    """Register kernel wrapper `fn` (a decorator): its ``fn.launches``
+    counter starts at 0 and joins :data:`COUNTED`."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
 
 
 class KernelBuildError(RuntimeError):

@@ -256,6 +256,7 @@ def band_rows_reference(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim,
     return rows
 
 
+@build.counted
 def band_coefs(tri9):
     """(M, 9) float32 grid-local vertices -> the (M, 40) table of
     :func:`_band_coefs`. CUDA: one launch of the coefficient pass. CPU:
@@ -278,9 +279,6 @@ def band_coefs(tri9):
     return coef
 
 
-band_coefs.launches = 0
-
-
 def _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, cids,
                  coord_tiles_dim, coord_grid_shape):
     """One launch of the tile walk into `rows` (the kernel writes every
@@ -296,6 +294,7 @@ def _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, cids,
     band_rows.launches += 1
 
 
+@build.counted
 def band_rows(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim, grid_shape,
               coord_ids=None, coord_tiles_dim=None, coord_grid_shape=None):
     """(T+1, 512) rows of (phi f32, tid int32, cpx, cpy, cpz f32).
@@ -333,6 +332,3 @@ def band_rows(tri9, pair, ids, off, cnt, dx: float, *, tiles_dim, grid_shape,
     _launch_rows(rows, coef, pair, ids, off, cnt, dx, tiles_dim, cids, ctd,
                  cgs)
     return rows
-
-
-band_rows.launches = 0

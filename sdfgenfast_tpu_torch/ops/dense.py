@@ -169,6 +169,7 @@ def dense_sep_reference(coef, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
     return sqrt_f32(best), best_t
 
 
+@build.counted
 def dense_stream(coef, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
     """(phi, tid) over the whole grid from the (40, M) table of
     :func:`_sep_coefs`. CUDA: one K1 launch. CPU: :func:`dense_sep_reference`."""
@@ -194,9 +195,7 @@ def dense_stream(coef, dx: float, *, grid_shape, ijk_offset=(0, 0, 0)):
     return phi, tid
 
 
-dense_stream.launches = 0
-
-
+@build.counted
 def sep_table(verts, origin, tris=None):
     """K1's (40, M) table in grid-local coordinates (less `origin`, a (3,)
     tensor or sequence).
@@ -248,9 +247,6 @@ def sep_table(verts, origin, tris=None):
             out.data_ptr(), stream), "sdf_sep_table")
     sep_table.launches += 1
     return out
-
-
-sep_table.launches = 0
 
 
 def dense_distance_field(tri_verts, origin, dx, *, grid_shape, ijk_offset=None):

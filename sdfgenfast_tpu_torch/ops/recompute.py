@@ -269,6 +269,7 @@ def recompute_terms_reference(tri_verts):
     return torch.stack(cols, 1)
 
 
+@build.counted
 def recompute_terms(tri_verts):
     """R1's per-triangle table, (M, R1_TERMS) float32 from (M, 3, 3)
     float32 vertices: a, b, c, invdet, m13, m23; x13 = a - c, d; x23 = b -
@@ -296,9 +297,6 @@ def recompute_terms(tri_verts):
     return table
 
 
-recompute_terms.launches = 0
-
-
 def _aligned(x, nbytes: int):
     """`x` contiguous, at an address that is a multiple of `nbytes` (a copy
     where a view starts elsewhere)."""
@@ -306,6 +304,7 @@ def _aligned(x, nbytes: int):
     return x if x.data_ptr() % nbytes == 0 else x.clone()
 
 
+@build.counted
 def recompute_forward(tri_verts, tid, parity, origin, dx: float,
                       upper: float, ijk_offset=None):
     """Signed phi (ni, nj, nk) float32 from the frozen ids and parity.
@@ -347,9 +346,7 @@ def r1_launch(tri_verts, tid, parity, origin, dx: float, upper: float,
     return phi
 
 
-recompute_forward.launches = 0
-
-
+@build.counted
 def recompute_backward(tri_verts, tid, parity, grad_phi, origin, dx: float,
                        upper: float, ijk_offset=None):
     """Vertex gradient (M, 3, 3) float32 of <grad_phi, phi>. CUDA: one R1b
@@ -387,9 +384,6 @@ def recompute_backward(tri_verts, tid, parity, grad_phi, origin, dx: float,
         grad = acc.to(torch.float32)
     recompute_backward.launches += 1
     return grad
-
-
-recompute_backward.launches = 0
 
 
 class _RecomputePhi(torch.autograd.Function):

@@ -60,6 +60,7 @@ def _check(parity, ni: int, phi):
                          f"{phi.dtype} on {phi.device}")
 
 
+@build.counted
 def parity_sign(parity, ni: int, phi=None, *, inplace: bool = False):
     """Decode (`phi` None): the (ni, nj, nk) bool parity of `parity`
     (packed uint8, int16 crossings, or a bool field, returned as it is).
@@ -98,6 +99,3 @@ def parity_sign(parity, ni: int, phi=None, *, inplace: bool = False):
             nk, stream), "sdf_parity_sign")
     parity_sign.launches += 1
     return out
-
-
-parity_sign.launches = 0

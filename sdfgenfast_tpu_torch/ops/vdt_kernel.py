@@ -62,6 +62,7 @@ def round_phase_reference(state, dx: float, strides, scale: int = 1,
     return state
 
 
+@build.counted
 def round_phase(state, dx: float, strides, scale: int = 1, pos_offset=None):
     """Run Jacobi rounds (one per stride, in order) over a (5, ni, nj, nk)
     float32 state. `pos_offset` ((i, j, k) ints, negative allowed; None =
@@ -100,9 +101,6 @@ def _rounds(state, dx: float, strides, scale: int, off):
     return _ping_pong(state, len(strides), launch)
 
 
-round_phase.launches = 0
-
-
 def chamfer_reference(phi, dx: float, passes: int = 2):
     """Plain-torch twin of :func:`chamfer` (``vdt.chamfer_relax``)."""
     return chamfer_relax(phi, dx, passes)
@@ -121,6 +119,7 @@ def chamfer_chunks(passes: int):
     return [CHAMFER_MAX_PASSES] * full + ([rest] if rest else [])
 
 
+@build.counted
 def chamfer(phi, dx: float, passes: int = 2):
     """`passes` 26-offset min-plus relaxation passes over a (ni, nj, nk)
     float32 field, into a new tensor. CUDA: one K4 launch per
@@ -148,6 +147,3 @@ def chamfer(phi, dx: float, passes: int = 2):
         chamfer.launches += 1
 
     return _ping_pong(phi, len(chunks), launch)
-
-
-chamfer.launches = 0

@@ -1,25 +1,22 @@
 """What the measurement tools share: the device a tool runs on, the card's
-name and power limit, and stage timers.
+name and power limit, and the device's synchronize.
 
 A tool runs on the current CUDA device unless it is given ``--device cpu``;
 without a card it raises, naming CUDA (``platform.resolve_device``). On the
-card every stage is timed by CUDA events around its own launches; on the
-CPU (a rehearsal of the tool, the kernels' plain twins) by the host clock,
-and the tools write no device metric for a CPU run.
+CPU (a rehearsal of the tool, the kernels' plain twins) the tools write no
+device metric.
 """
 
 from __future__ import annotations
 
-import statistics
 import subprocess
-import time
 from typing import Optional
 
 import torch
 
 from ..platform import resolve_device
 
-__all__ = ["tool_device", "card_line", "sync", "Stages"]
+__all__ = ["tool_device", "card_line", "sync"]
 
 
 def tool_device(name: Optional[str]) -> torch.device:
@@ -56,54 +53,3 @@ def card_line(device: torch.device) -> str:
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-class Stages:
-    """Times named stages on `device` and keeps each stage's median in
-    ``ms`` (summed over the calls of a stage name made more than once).
-
-    :meth:`run` calls ``fn()`` once to warm up, then `repeats` times, each
-    timed alone: CUDA events around the call on the card (its launches on
-    the current stream, after a synchronize), the host clock on the CPU.
-    It returns the last call's output. :meth:`host` times host work by the
-    host clock (the minimum of `repeats` calls, none to warm up)."""
-
-    def __init__(self, device: torch.device, repeats: int = 3):
-        self.device = device
-        self.repeats = repeats
-        self.ms: dict = {}
-        self.calls: dict = {}
-
-    def _add(self, name: str, ms: float) -> None:
-        self.ms[name] = self.ms.get(name, 0.0) + ms
-        self.calls[name] = self.calls.get(name, 0) + 1
-
-    def run(self, name: str, fn):
-        out = fn()
-        times = []
-        for _ in range(self.repeats):
-            sync(self.device)
-            if self.device.type == "cuda":
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = fn()
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end))
-            else:
-                t0 = time.perf_counter()
-                out = fn()
-                times.append((time.perf_counter() - t0) * 1e3)
-        self._add(name, statistics.median(times))
-        return out
-
-    def host(self, name: str, fn):
-        out, best = None, float("inf")
-        for _ in range(self.repeats):
-            sync(self.device)
-            t0 = time.perf_counter()
-            out = fn()
-            best = min(best, (time.perf_counter() - t0) * 1e3)
-        self._add(name, best)
-        return out

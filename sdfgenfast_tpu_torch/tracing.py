@@ -10,7 +10,7 @@ parent (the enclosing span on the same thread, or the span passed
 explicitly to a worker thread), the id of its root (shared by every span
 of one call into the API), host start and end (``time.perf_counter_ns``),
 the device milliseconds of a device span, ``launches``, the change
-over the span in the sum of the ten kernel launch counters
+over the span in the sum of the kernel wrappers' launch counters
 (:func:`launch_count`), and ``counts``, named quantities that the code
 inside the span adds to it (``_Span.add``), such as the bytes that a halo
 exchange writes.
@@ -49,6 +49,8 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+
+from .kernels import build
 
 __all__ = ["RING", "Record", "begin", "clear", "disable", "enable",
            "launch_count", "self_ms", "span", "spans"]
@@ -97,21 +99,10 @@ def disable() -> None:
     _on = False
 
 
-_counted = ()  # the kernel wrappers, found at the first count
-
-
 def launch_count() -> int:
-    """The sum of the kernel wrappers' ``.launches`` counters."""
-    global _counted
-    if not _counted:
-        from .ops import band_kernel, dense, recompute, sign_kernel, vdt_kernel
-
-        _counted = (dense.sep_table, dense.dense_stream,
-                    band_kernel.band_coefs, band_kernel.band_rows,
-                    vdt_kernel.round_phase, vdt_kernel.chamfer,
-                    recompute.recompute_terms, recompute.recompute_forward,
-                    recompute.recompute_backward, sign_kernel.parity_sign)
-    return sum(f.launches for f in _counted)
+    """The sum of the kernel wrappers' ``.launches`` counters (those
+    registered by ``kernels.build.counted``)."""
+    return sum(f.launches for f in build.COUNTED)
 
 
 def _stack() -> list:

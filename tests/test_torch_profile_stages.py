@@ -1,18 +1,16 @@
-"""``tools.profile_stages`` on the CPU twins: the staged composition of the
-pipeline's functions equals ``make_level_set3`` bit for bit, in phi and
-ids, on the binned path (icosphere(3) at 40^3; a torus on a thin grid,
-whose pyramid runs permuted over odd level extents) and on the dense path
-(box36), and the tool's entry points run."""
+"""``tools.profile_stages`` on the CPU twins: the stages read from the
+spans of ``generate_sdf`` on the binned path (icosphere(3) at 40^3; a torus
+on a thin grid, whose pyramid runs permuted over odd level extents) and on
+the dense path (box36), and the tool's entry points run."""
 
 import json
 
-import numpy as np
 import pytest
 import torch
 
 import sdfgenfast_tpu_torch as P
 from sdfgenfast_tpu_torch.grid import sizing_mode2a_proportional
-from sdfgenfast_tpu_torch.ops import vdt
+from sdfgenfast_tpu_torch.ops import vdt, vdt_kernel
 from sdfgenfast_tpu_torch.pipeline import _vdt_axis_perm
 from sdfgenfast_tpu_torch.testing import box36
 from sdfgenfast_tpu_torch.tools import profile_stages as ps
@@ -41,32 +39,53 @@ def _rounds(shape):
             + len(vdt.PYRAMID_LEVEL_ROUNDS) + 2)
 
 
+def _count_k3_twin(monkeypatch):
+    """On the CPU K3's twin launches nothing: count a launch a stride, as
+    ``round_phase`` does on the card."""
+    twin = vdt_kernel.round_phase_reference
+
+    def counted(state, dx, strides, *args):
+        vdt_kernel.round_phase.launches += len(strides)
+        return twin(state, dx, strides, *args)
+
+    monkeypatch.setattr(vdt_kernel, "round_phase_reference", counted)
+    monkeypatch.setattr(vdt_kernel.round_phase, "launches", 0)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_staged_equals_make_level_set3(case):
+def test_stages_from_spans(case, monkeypatch):
+    """profile() splits generate_sdf by its spans: the route's stages are
+    there, K3's launches follow the pyramid's schedule, the device stages
+    read "not measured" on the CPU, and the launches of the stages that
+    split a call sum to the root's."""
     make, nx = CASES[case]
-    mesh = make()
-    grid = sizing_mode2a_proportional(*mesh.bounds(), nx, 1)
-    phi, tid, info = ps.staged(mesh, grid, P.SDFConfig(), CPU, repeats=1)
-    want, want_tid = P.make_level_set3(mesh, grid, device=CPU,
-                                       return_tid=True)
-    assert torch.equal(phi.view(torch.int32), want.view(torch.int32))
-    assert torch.equal(tid, want_tid)
-    stages = info["stages"]
-    assert all(ms >= 0 for ms in stages.values())
+    monkeypatch.setitem(ps.MESHES, case, make)
+    _count_k3_twin(monkeypatch)
+    run = ps.profile(case, nx, CPU, repeats=1)
+    stages, launches = run["stages_ms"], run["launches"]
+    assert set(launches) == set(stages) - {"end-to-end (warm)"}
+    assert all(stages[k] == "not measured" for k in launches
+               if k in ps.DEVICE)
+    assert all(stages[k] >= 0 for k in launches if k in ps.HOST)
+    total = sum(launches[k] for k in ps.SPLIT if k in launches)
+    assert total == launches["sdf.generate_sdf"] \
+        == launches["sdf.make_level_set3"]
     if case == "box36_24":
-        assert info["binning"] is None and info["k3_rounds"] == 0
-        assert "K1" in stages and "pyramid K3 rounds" not in stages
+        assert run["binning"] is None and run["k3_rounds"] == 0
+        assert {"sdf.dense.table", "sdf.dense.k1", "sdf.sign"} <= set(stages)
+        assert "sdf.k3" not in stages and "sdf.band" not in stages
         return
+    assert {"sdf.band", "sdf.far_field", "sdf.k3", "glue", "sdf.chamfer",
+            "sdf.sign", "sdf.bin_mesh", "sdf.bin.parity", "sdf.bin.band",
+            "sdf.bin.csr", "sdf.bin.upload", "sdf.to_host",
+            "sdf.to_host.touch"} <= set(stages)
+    grid = sizing_mode2a_proportional(*make().bounds(), nx, 1)
     shape = tuple(grid.shape[p] for p in _vdt_axis_perm(grid.shape))
-    assert info["k3_rounds"] == _rounds(shape)
-    assert info["binning"]["A"] > 0 and info["binning"]["P"] > 0
+    assert launches["sdf.k3"] == run["k3_rounds"] == _rounds(shape) == total
+    assert launches["glue"] == 0
     levels = len(vdt.pyramid_level_shapes(shape))
-    assert info["counts"]["pyramid K3 rounds"] == levels
-    assert info["counts"].get("pyramid downsample", 0) == levels - 1
-    # the frozen band is exact: its phi never changes after the band
-    exact = info["exact"]
-    assert exact.any() and torch.equal((want.abs() <= 3 * grid.dx) & exact,
-                                       want.abs() <= 3 * grid.dx)
+    assert run["spans"]["sdf.k3"] == levels
+    assert run["binning"]["A"] > 0 and run["binning"]["P"] > 0
     if case == "thin_torus_100":
         assert shape == (100, 30, 100) and levels == 3
         assert vdt.pyramid_level_shapes(shape)[1:] == [(50, 15, 50),
@@ -74,23 +93,25 @@ def test_staged_equals_make_level_set3(case):
 
 
 def test_profile_entry_point_cpu(capsys):
-    """main() on box36 at Nx 24: one JSON line, the staged run bit-equal to
-    the production call, and no device number from the CPU."""
+    """main() on box36 at Nx 24: one JSON line, the stages of the call's
+    spans each with its launches, and no device number from the CPU."""
     line = ps.main(["24", "box", "--device", "cpu"])
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1 and json.loads(out[0]) == line
     (run,) = line["runs"]
-    assert run["bit_equal"] and run["grid"] == [24, 31, 39]
+    assert run["grid"] == [24, 31, 39] and "bit_equal" not in run
     assert run["profile"] == {"busy_share": "not measured",
                               "kernels": "not measured"}
-    for k in ("upload", "K1", "sign apply", "copy back (to_host)",
+    for k in ("sdf.bin.upload", "sdf.dense.k1", "sdf.sign", "sdf.to_host",
               "end-to-end (warm)"):
         assert k in run["stages_ms"]
+    assert run["stages_ms"]["sdf.dense.k1"] == "not measured"
+    assert run["launches"]["sdf.dense.k1"] == 0
+    assert run["spans"]["sdf.sign"] == 1
+    assert set(run["launches"]) == set(run["spans"]) \
+        == set(run["stages_ms"]) - {"end-to-end (warm)"}
     with pytest.raises(ValueError, match="mesh"):
         ps.main(["24", "bunny", "--device", "cpu"])
-    with pytest.raises(ValueError, match="default route"):
-        ps.staged(box36(), sizing_mode2a_proportional(*box36().bounds(), 8, 1),
-                  P.SDFConfig(vdt_max_hop=8), CPU)
 
 
 def test_device_profile_cpu_not_measured():

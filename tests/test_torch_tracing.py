@@ -6,9 +6,11 @@ entry point still runs and nothing is recorded. On, by ``enable()`` or
 under ``torch.profiler``, the spans of a binned and of a dense call form
 one tree under one root, host times nested in their parents; only the
 host ranges enter the profiler's trace. Results are bit-equal on and off.
-The launch delta, self time, the ring's bound and explicit parents on a
-worker thread are checked on their own."""
+The launch delta, the registry of kernel wrappers it sums, self time, the
+ring's bound and explicit parents on a worker thread are checked on their
+own."""
 
+import importlib
 import threading
 
 import numpy as np
@@ -17,9 +19,11 @@ import torch
 
 import sdfgenfast_tpu_torch as P
 from sdfgenfast_tpu_torch import tracing, upload
+from sdfgenfast_tpu_torch.kernels import build
 from sdfgenfast_tpu_torch.models import SDFGenerator
 from sdfgenfast_tpu_torch.ops import dense as dense_ops
 from sdfgenfast_tpu_torch.ops import vdt_kernel
+from sdfgenfast_tpu_torch.tools import micro_bench  # noqa: F401
 
 CPU = torch.device("cpu")
 
@@ -205,6 +209,31 @@ def test_launch_delta_from_patched_counters(monkeypatch):
         pass
     got = {r.name: r.launches for r in tracing.spans()}
     assert got == {"sdf.inner": 3, "sdf.outer": 4, "sdf.after": 0}
+
+
+# the program's kernel wrappers, by the module that defines each
+WRAPPERS = {"sep_table": "dense", "dense_stream": "dense",
+            "band_coefs": "band_kernel", "band_rows": "band_kernel",
+            "round_phase": "vdt_kernel", "chamfer": "vdt_kernel",
+            "recompute_terms": "recompute", "recompute_forward": "recompute",
+            "recompute_backward": "recompute", "parity_sign": "sign_kernel"}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_wrapper_registered_where_defined(name, monkeypatch):
+    """The registry (``kernels.build.counted``) holds exactly the ten
+    wrappers, each the function its module defines (the probes of
+    ``tools.micro_bench``, imported here, stay out), and a launch counted
+    by one moves ``launch_count`` by one."""
+    assert sorted(f.__name__ for f in build.COUNTED) == sorted(WRAPPERS)
+    module = importlib.import_module(
+        f"sdfgenfast_tpu_torch.ops.{WRAPPERS[name]}")
+    fn = getattr(module, name)
+    assert fn in build.COUNTED and fn.__module__ == module.__name__
+    monkeypatch.setattr(fn, "launches", 2)
+    before = tracing.launch_count()
+    fn.launches += 1
+    assert tracing.launch_count() == before + 1
 
 
 def _rec(i, parent, a, b, dev=None, name="s"):
